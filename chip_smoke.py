@@ -3,12 +3,16 @@
     python3 chip_smoke.py            # needs one CUDA card, exits 0 on success
 
 Phases:
-  1. card name and power limit; nvcc build of the three CUDA kernels and
-     the native host engine's build, each timed;
+  1. card name and power limit; nvcc build of the four CUDA kernels (one
+     nvcc per source, in parallel) and the native host engine's build,
+     each timed;
   2. each kernel against its plain PyTorch version on the card at
      main-path shapes, and against the native f64 engine:
        forward  bench_assets.npz grid (141 models x 500 queries), |dbits|
                 <= 1e-3 vs plain; 2,000 sampled pairs vs native, <= 1e-3
+       flank    (2d) the same grid: fwd, ppB, ppE, mocc within 2e-3 of
+                plain; three-way gate decisions equal except for pairs
+                whose rows sit within 1e-3 of RT1, RT2 or RT3
        null2    the envelopes of the amino500 gate: envsc, useI, usetot,
                 n2dot within 1e-4 relative (|d| / max(|ref|, 1e-2));
                 assembled sbias/senv within 2e-3 bits and sbsum 5e-3 of
@@ -16,13 +20,33 @@ Phases:
        oa       the amino500 alignment pairs + 256 bench_assets pairs:
                 identical columns on every pair with margin >= 2e-3, vs
                 plain and vs native posterior_oa_pair;
+       wide     (2e) a bank of a 8,000-state and a 16,384-state model
+                (Mp 16,416, rows in device memory): oa and null2 with the
+                tolerances above, vs plain and native;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
+     the same with --full-search-results 1 (600/600 rows, the flank
+     kernel launched, full_search_replay below) and with -m old-witch
+     (every query placed with its residues or ignored, 0 above-guard OA
+     mismatches against native over all its pairs);
   4. seeded DNA scenario D, 1,000 backbone + 1,000 queries
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
-     above the guard, all three kernels launched;
-  5. {"kernels": [...]} JSON, the nvidia-smi line, and as the last line
+     above the guard, all three kernels launched; then (4c) the same
+     backbone with --full-search-results 1 on its first 60 queries, a
+     grid the prefilter drops pairs of: every query placed or ignored,
+     and full_search_replay (the path's flank inputs through kernel and
+     plain with the 2d bounds and decisions, the copied rows, 500
+     sampled dropped pairs unreported by native evaluate_targets, 300
+     sampled kept pairs equal between native domain definition on the
+     device rows and on its own f64 rows); then scenario C on the
+     same data (-e left out): the device distance counts equal numpy
+     float64, every query placed or ignored, backbone rows intact;
+  5. scenario A: -i of 300 ungapped full-length rows and 100 fragments
+     (make_scale_dataset.py) with --backbone-size 100: every input
+     sequence in the output with its residues (or ignored), masked rows
+     flush;
+  6. {"kernels": [...]} JSON, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Any failed check raises; the script then exits nonzero without the
@@ -45,6 +69,12 @@ sys.path.insert(0, ROOT)
 
 GOLD = os.path.join(ROOT, "tests", "golden")
 OA_GUARD = 2e-3
+# sizes of the phases (a cut of scale is listed in PERF.md)
+AMINO = ("ref_amino500", 600)       # golden prefix, masked rows
+DNA_N = 1000                        # dna1k backbone and queries
+WIDE_M = (8000, 16384)              # phase 2e model sizes
+DNA_FULL = 60                       # dna1k queries of the full search
+SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
 
 
@@ -164,17 +194,51 @@ def phase_forward(dev, result):
 
 
 class Recorder:
-    """Records the inputs the main path hands to the gate and the OA
-    kernel wrapper, so phase 2 can replay them against the plain
-    versions and the native engine."""
+    """Records the inputs the main path hands to the gate, the OA kernel
+    wrapper, the full-search prefilter (its flank inputs, decisions and
+    copied rows) and the tree distances, so the checks can replay them
+    against the plain versions and the native engine."""
 
     def __init__(self):
+        import numpy as np
         import witch_tpu_torch.aligner as al
+        import witch_tpu_torch.hmm.flank_device as fd
         import witch_tpu_torch.hmm.gate_device as gd
         import witch_tpu_torch.pipeline as pl
+        import witch_tpu_torch.tree_estimate as te
         self.gate, self.null2, self.oa = [], [], []
+        self.full, self.counts, self.dist = [], [], []
+        self.grid = []
         orig_gate, orig_null2, orig_oa = (pl.evaluate_gate_device,
                                           gd.null2_envelopes, al.oa_columns)
+        orig_full, orig_counts, orig_dist = (
+            pl._full_search_gate, te.identity_counts, te.pairwise_distances)
+        orig_grid = fd.prefilter_grid
+
+        def full(ens, indices, *a, **kw):
+            drop = orig_full(ens, indices, *a, **kw)
+            self.full.append((ens, list(indices), a[5], drop))
+            return drop
+
+        def counts(aln, device):
+            m, d = orig_counts(aln, device)
+            self.counts.append((aln, m, d))
+            return m, d
+
+        def dist(aln, device):
+            d = orig_dist(aln, device)
+            self.dist.append(d)
+            return d
+
+        def grid(banks_t, bank_cols, codes, lens, H, **kw):
+            dec, rows = orig_grid(banks_t, bank_cols, codes, lens, H, **kw)
+            self.grid.append((banks_t, [list(c) for c in bank_cols],
+                              codes, np.asarray(lens, np.int32), dec, rows))
+            return dec, rows
+
+        pl._full_search_gate = full
+        fd.prefilter_grid = grid
+        te.identity_counts, te.pairwise_distances = counts, dist
 
         def gate(*a, **kw):
             res, stats = orig_gate(*a, **kw)
@@ -193,9 +257,16 @@ class Recorder:
             gate, null2, oa
 
     def clear(self):
-        self.gate.clear()
-        self.null2.clear()
-        self.oa.clear()
+        for x in (self.gate, self.null2, self.oa, self.full, self.counts,
+                  self.dist, self.grid):
+            x.clear()
+
+
+def timed(fn, *a):
+    t0 = time.time()
+    out = fn(*a)
+    say("  [%s: %.1f s]" % (fn.__name__, time.time() - t0))
+    return out
 
 
 def run_cli(argv):
@@ -217,37 +288,51 @@ def print_breakdown(outdir):
     return lines
 
 
-def phase_amino(tmp):
-    say("== phase 3: amino500 golden end to end (witch_runner)")
-    outdir = os.path.join(tmp, "amino500")
+def run_amino(outdir, extra, label, oracle=True):
+    """amino500 golden through witch_runner with `extra` flags; checks
+    600/600 masked rows against the oracle when `oracle`, else reports
+    the count. Returns the launches of the run."""
+    from witch_tpu.io.fasta import read_fasta
+    pre, n_rows = AMINO
     out, dt, launches = run_cli([
-        "-b", os.path.join(GOLD, "ref_amino500.backbone.fasta"),
-        "-e", os.path.join(GOLD, "ref_amino500.backbone.tre"),
-        "-q", os.path.join(GOLD, "ref_amino500.queries.fasta"),
-        "-d", outdir, "-o", "aligned.fasta", "--molecule", "amino"])
+        "-b", os.path.join(GOLD, pre + ".backbone.fasta"),
+        "-e", os.path.join(GOLD, pre + ".backbone.tre"),
+        "-q", os.path.join(GOLD, pre + ".queries.fasta"),
+        "-d", outdir, "-o", "aligned.fasta", "--molecule", "amino"] + extra)
     print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
     mine = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
     with gzip.open(os.path.join(
-            GOLD, "ref_amino500.aligned.masked.fasta.gz"), "rt") as f:
-        from witch_tpu.io.fasta import read_fasta
-        oracle = dict(read_fasta(f))
-    bad = [n for n in oracle if mine.get(n) != oracle[n]]
-    check(len(oracle) == 600 and not bad,
-          "amino500: %d/600 masked rows equal the oracle"
-          % (len(oracle) - len(bad)))
-    check(all(v > 0 for v in launches.values()),
-          "amino500: every kernel launched on the main path %s" % launches)
+            GOLD, pre + ".aligned.masked.fasta.gz"), "rt") as f:
+        gold = dict(read_fasta(f))
+    bad = [n for n in gold if mine.get(n) != gold[n]]
+    if oracle:
+        check(len(gold) == n_rows and not bad,
+              "%s: %d/%d masked rows equal the oracle"
+              % (label, len(gold) - len(bad), n_rows))
+    else:
+        say("  %s: %d/%d masked rows equal the witch-ng oracle"
+            % (label, len(gold) - len(bad), len(gold)))
     return launches
 
 
-def phase_null2(rec, dev, result):
+def phase_amino(tmp):
+    say("== phase 3: amino500 golden end to end (witch_runner)")
+    launches = run_amino(os.path.join(tmp, "amino500"), [], "amino500")
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "amino500: forward, null2 and oa launched on the main path %s"
+          % launches)
+    return launches
+
+
+def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
+                "amino500 gate envelopes", key="null2"):
     import numpy as np
     import torch
     from witch_tpu.native import _domaindef
     from witch_tpu_torch.ops.null2 import _pack, null2_nats, null2_nats_ref
 
-    say("== phase 2b: null2 kernel vs plain, amino500 gate envelopes")
+    say("== phase " + label)
     worst = 0.0
     abs_err = 0.0
     ms = plain_ms = 0.0
@@ -293,8 +378,8 @@ def phase_null2(rec, dev, result):
         "%.3g, |dsenv| %.3g, |dsbsum| %.3g" % (npairs, nbad, dsb, dse, dss))
     check(npairs > 0 and nbad == 0 and dsb < 2e-3 and dse < 2e-3
           and dss < 5e-3, "gate assembly vs native evaluate_targets_rows")
-    result["null2"] = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
-                           plain_ms=plain_ms, envelopes=n_env)
+    result[key] = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
+                       plain_ms=plain_ms, envelopes=n_env)
 
 
 def oa_compare(bt, pairs_rows, Ldmax, label):
@@ -399,7 +484,7 @@ def phase_dna(tmp, rec):
     t0 = time.time()
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),
-                    "--n", "1000", "--queries", "1000", "--seed",
+                    "--n", str(DNA_N), "--queries", str(DNA_N), "--seed",
                     "20260820", "--out", data], check=True,
                    capture_output=True, timeout=300)
     say("  dataset generated in %.2f s" % (time.time() - t0))
@@ -426,8 +511,9 @@ def phase_dna(tmp, rec):
     bad = [n for n, s in bb.items() if masked.get(n) != s.upper()]
     check(not bad, "dna1k: %d/%d backbone rows equal the input"
           % (len(bb) - len(bad), len(bb)))
-    check(all(v > 0 for v in launches.values()),
-          "dna1k: every kernel launched on the main path %s" % launches)
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "dna1k: forward, null2 and oa launched on the main path %s"
+          % launches)
     banks_t, bank_row, pairs, Ldmax = rec.oa[-1]
     v = validate_oa(REC_ALIGNER[0], pairs, Ldmax, sample=200, seed=1)
     check(v["above_guard"] == 0,
@@ -439,6 +525,551 @@ def phase_dna(tmp, rec):
     ens = [ln.split("\t", 1)[-1].strip() for ln in open(
         os.path.join(outdir, "log.txt")) if "Ensemble of" in ln]
     say("  " + " | ".join(ens + gate))
+    return launches
+
+
+def _rows_near(mocc, ppB, ppE, lens, tol=1e-3):
+    """[Q, H] bool on the device: some live row of the pair sits within
+    tol of RT1 (mocc) or RT2 (mocc - dB, mocc - dE)."""
+    import torch
+    from witch_tpu_torch.hmm.flank_device import RT1, RT2
+    W = mocc.shape[-1]
+    ar = torch.arange(W, device=mocc.device)
+    live = (ar >= 1) & (ar[None, None, :] <= lens[:, None, None])
+    dB = torch.nn.functional.pad(ppB[..., :-1], (1, 0))
+    near = ((mocc - RT1).abs() < tol) | ((mocc - dB - RT2).abs() < tol) \
+        | ((mocc - ppE - RT2).abs() < tol)
+    return (near & live).any(-1)
+
+
+def _split_near(mocc, ppB, ppE, L, tol=1e-3):
+    """True when a region of the pair has its split mass within tol of
+    RT3 (host, one pair)."""
+    import numpy as np
+    from witch_tpu_torch.hmm.flank_device import RT3, find_regions_rows
+    btot = np.cumsum(np.concatenate([[0.0], ppB[:L]]))
+    etot = np.cumsum(np.concatenate([[0.0], ppE[1:L + 1]]))
+    for (i, j) in find_regions_rows(mocc, ppB, ppE, L):
+        ps = np.arange(i, j + 1)
+        m = float(np.minimum(etot[ps] - etot[i - 1],
+                             btot[j] - btot[ps - 1]).max())
+        if abs(m - RT3) < tol:
+            return True
+    return False
+
+
+def _decisions(rows, lens_np):
+    """Three-way decisions [Q, H] from device rows (fwd, ppB, ppE, mocc)
+    with the port's prefilter semantics."""
+    import numpy as np
+    import torch
+    from witch_tpu_torch.hmm.flank_device import RT1, gate_prefilter
+    _, ppB, ppE, mocc = rows
+    Q, H = mocc.shape[:2]
+    qi, hi = torch.nonzero((mocc >= RT1).any(-1), as_tuple=True)
+    got = [x[qi, hi].cpu().numpy() for x in (mocc, ppB, ppE)]
+    qi, hi = qi.cpu().numpy(), hi.cpu().numpy()
+    d, _ = gate_prefilter(got[0], got[1], got[2], lens_np[qi])
+    dec = np.full((Q, H), -1, np.int8)
+    dec[qi, hi] = d
+    return dec
+
+
+def _compare_decisions(k, p, lens, ln):
+    """Kernel (k) and plain (p) rows of one bank: (kernel decisions,
+    plain decisions, [Q, H] near-threshold mask, the differing pairs,
+    how many of them sit away from RT1, RT2 and RT3)."""
+    import numpy as np
+    dk, dp = _decisions(k, lens), _decisions(p, lens)
+    near = (_rows_near(k[3], k[1], k[2], ln)
+            | _rows_near(p[3], p[1], p[2], ln)).cpu().numpy()
+    diff = np.argwhere(dk != dp)
+    far = 0
+    for q, h in diff:
+        L = int(lens[q])
+        if near[q, h]:
+            continue
+        rows = [[x[q, h].cpu().numpy() for x in (r[3], r[1], r[2])]
+                for r in (k, p)]
+        if not any(_split_near(*rw, L) for rw in rows):
+            far += 1
+    return dk, dp, near, diff, far
+
+
+def phase_flank(banks_bench, codes, lens, dev, result):
+    import numpy as np
+    import torch
+    from witch_tpu_torch.device import bank_to_torch
+    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+
+    from witch_tpu.native import _domaindef, set_trace_alphabet
+
+    say("== phase 2d: flank kernel vs plain, bench_assets grid")
+    c = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    err_fwd = err_rows = ms = plain_ms = 0.0
+    n_pairs = n_near = n_diff = n_diff_far = n_kept = 0
+    t_host = 0.0
+    dropped = []                 # (bank, row, query) the prefilter drops
+    for b in banks_bench:
+        bt = bank_to_torch(b, dev)
+        k = flank_rows(bt, c, ln)
+        p = flank_rows_ref(bt, c, ln, elems=1 << 26)
+        torch.cuda.synchronize()
+        err_fwd = max(err_fwd, float((k[0] - p[0]).abs().max()))
+        err_rows = max(err_rows, max(float((a - b_).abs().max())
+                                     for a, b_ in zip(k[1:], p[1:])))
+        ms += cuda_ms(lambda: flank_rows(bt, c, ln), 3)
+        plain_ms += cuda_ms(lambda: flank_rows_ref(bt, c, ln,
+                                                   elems=1 << 26), 1)
+        t0 = time.time()
+        dk, dp, near, diff, far = _compare_decisions(k, p, lens, ln)
+        t_host += time.time() - t0
+        n_pairs += dk.size
+        n_near += int(near.sum())
+        n_diff += len(diff)
+        n_diff_far += far
+        n_kept += int((dk >= 0).sum())
+        dropped += [(b, int(h), int(q)) for q, h in np.argwhere(dk < 0)]
+        say("  bank H=%d Mp=%d: |dfwd| %.3g nats, |drows| %.3g"
+            % (bt.H, bt.Mp, err_fwd, err_rows))
+    say("  grid %d pairs: kernel %.2f ms, plain %.2f ms; %d pairs kept "
+        "(decision >= 0); %d pairs with rows within 1e-3 of RT1/RT2; "
+        "%d decisions differ, %d of them not near RT1/RT2/RT3 (host "
+        "classification %.1f s)" % (n_pairs, ms, plain_ms, n_kept, n_near,
+                                    n_diff, n_diff_far, t_host))
+    check(err_fwd <= 5e-3 and err_rows <= 2e-3,
+          "flank kernel vs plain: |dfwd| %.3g <= 5e-3 nats, |drows| %.3g "
+          "<= 2e-3" % (err_fwd, err_rows))
+    check(n_diff_far == 0, "flank decisions equal plain except near the "
+          "thresholds (%d differ, all near)" % n_diff)
+    # pairs the prefilter drops have no region: native domain definition
+    # reports none of a sample
+    set_trace_alphabet("dna")
+    rng = np.random.default_rng(5)
+    pick = rng.choice(len(dropped), min(500, len(dropped)), replace=False)
+    by_model = {}
+    for t in pick:
+        b, h, q = dropped[t]
+        by_model.setdefault((id(b), h), (b, h, []))[2].append(q)
+    reported = 0
+    for b, h, qs in by_model.values():
+        out = _domaindef.evaluate_targets(
+            *native_args_from_bank(b, h),
+            [np.ascontiguousarray(codes[q, :lens[q]]) for q in qs],
+            42, 200, 1, 8)
+        reported += int(((np.asarray(out[0]) > 0)
+                         & (np.asarray(out[1]) > 0)).sum())
+    check(len(pick) == min(500, len(dropped)) and reported == 0,
+          "flank prefilter: %d of %d pairs dropped; %d sampled, %d "
+          "reported by native evaluate_targets"
+          % (len(dropped), n_pairs, len(pick), reported))
+    result["flank"] = dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
+                           plain_ms=plain_ms, near_threshold=n_near,
+                           decisions_differ=n_diff)
+
+
+def _wide_problem(seed=17):
+    """A bank of one 8,000-state and one 16,384-state DNA model (WIDE_M),
+    and query fragments of each model's consensus."""
+    import numpy as np
+    from witch_tpu.core.alphabet import DNA
+    from witch_tpu.hmm.bank import build_banks
+    from witch_tpu.hmm.build import build_hmm, quantize_like_text
+    rng = np.random.default_rng(seed)
+    cores, queries = [], []
+    for M in WIDE_M:
+        base = rng.integers(0, 4, M)
+        rows = np.array([np.where(rng.random(M) < 0.1,
+                                  rng.integers(0, 4, M), base)
+                         for _ in range(6)], np.uint8)
+        cores.append(quantize_like_text(build_hmm(rows, DNA, "dna")))
+        qs = []
+        for _ in range(12):
+            a = int(rng.integers(0, M - 300))
+            q = base[a:a + int(rng.integers(100, 300))].copy()
+            mut = rng.random(len(q)) < 0.05
+            q[mut] = rng.integers(0, 4, int(mut.sum()))
+            qs.append(q.astype(np.int32))
+        queries.append(qs)
+    banks = build_banks(cores, indices=[0, 1], uniform=True, n_buckets=2)
+    return cores, queries, banks
+
+
+def phase_wide(rec, dev, result):
+    import numpy as np
+    from witch_tpu.hmm.profile import configure
+    from witch_tpu.native import _domaindef, set_trace_alphabet
+    import witch_tpu_torch.pipeline as pl
+    from witch_tpu_torch.device import bank_to_torch
+
+    say("== phase 2e: oa and null2 on wide models (M 8,000 and 16,384)")
+    t0 = time.time()
+    cores, queries, banks = _wide_problem()
+    set_trace_alphabet("dna")
+    say("  models built in %.2f s; banks Mp %s" % (
+        time.time() - t0, [bank_to_torch(b, dev).Mp for b in banks]))
+    bank_row = {int(idx): (bi, r) for bi, b in enumerate(banks)
+                for r, idx in enumerate(b.hmm_indices)}
+    banks_t = [bank_to_torch(b, dev) for b in banks]
+    # oa: kernel vs plain vs native
+    bad_p = bad_n = 0
+    dmax = ms = plain_ms = 0.0
+    mps = []
+    for j, qs in enumerate(queries):
+        bi, r = bank_row[j]
+        b = banks[bi]
+        cols, mg, ok, bad, dm, t_k, t_p = oa_compare(
+            banks_t[bi], [(r, q) for q in qs], 300, "wide model %d (Mp %d)"
+            % (j, banks_t[bi].Mp))
+        a = native_args_from_bank(b, r)
+        d = [np.ascontiguousarray(np.isfinite(x).astype(np.uint8))
+             for x in a[1:]]
+        for t, q in enumerate(qs):
+            ref = np.asarray(_domaindef.posterior_oa_pair(
+                *a, q, len(q), 0, *d))[:len(q)]
+            if mg[t] >= OA_GUARD and ok[t] and not np.array_equal(cols[t],
+                                                                   ref):
+                bad_n += 1
+        bad_p += bad
+        dmax = max(dmax, dm)
+        ms, plain_ms = t_k, t_p          # the widest model's times
+        mps.append(banks_t[bi].Mp)
+    check(bad_p == 0 and bad_n == 0,
+          "oa wide: %d pairs, above-guard mismatches vs plain %d, vs "
+          "native %d" % (sum(map(len, queries)), bad_p, bad_n))
+    # forward and flank keep 3 rows in shared memory (197 KB at Mp 16,416)
+    import torch
+    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+    from witch_tpu_torch.ops.forward import LN2, forward_nats, \
+        forward_nats_ref
+    qall = [q for qs in queries for q in qs]
+    cm = np.zeros((len(qall), max(map(len, qall))), np.int32)
+    for i, q in enumerate(qall):
+        cm[i, :len(q)] = q
+    c = torch.from_numpy(cm).to(dev)
+    ln = torch.from_numpy(np.array([len(q) for q in qall], np.int32)).to(dev)
+    e_fw = e_ff = e_fr = 0.0
+    for bt in banks_t:
+        e_fw = max(e_fw, float(((forward_nats(bt, c, ln)
+                                 - forward_nats_ref(bt, c, ln)).abs()
+                                / LN2).max()))
+        k, p = flank_rows(bt, c, ln), flank_rows_ref(bt, c, ln)
+        e_ff = max(e_ff, float((k[0] - p[0]).abs().max()))
+        e_fr = max(e_fr, max(float((a - b_).abs().max())
+                             for a, b_ in zip(k[1:], p[1:])))
+    check(e_fw <= 1e-3 and e_ff <= 5e-3 and e_fr <= 2e-3,
+          "forward and flank at Mp %s vs plain: |dbits| %.3g <= 1e-3, "
+          "flank |dfwd| %.3g <= 5e-3 nats, |drows| %.3g <= 2e-3"
+          % (mps, e_fw, e_ff, e_fr))
+    result["oa_wide"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                             Mp=max(mps))
+    # null2: the port's device gate on these pairs, replayed by phase_null2
+    rec.clear()
+    qcodes = [q for qs in queries for q in qs]
+    by_j, flank, allargs = {}, {}, {}
+    for j in range(len(cores)):
+        allargs[j] = pl._native_args(configure(cores[j], multihit=True))
+        by_j[j] = list(range(len(qcodes)))
+        _, mo, pb, pe = _domaindef.flank_targets_simd(
+            *allargs[j], [np.ascontiguousarray(q) for q in qcodes], 8)
+        flank[j] = (mo, pb, pe)
+    pl.evaluate_gate_device(banks_t, bank_row, allargs, qcodes, by_j, flank,
+                            nthreads=8)
+    phase_null2(rec, dev, result, "2e: null2 kernel vs plain, wide-model "
+                "gate envelopes", "null2_wide")
+
+
+def _query_rows_ok(outdir, qpath):
+    """(n placed with their residues, n ignored, names neither)."""
+    from witch_tpu.io.fasta import read_fasta
+    rows = read_fasta_dict(os.path.join(outdir, "aligned.fasta"))
+    ign_p = os.path.join(outdir, "ignored_queries.fasta")
+    ignored = set(read_fasta_dict(ign_p)) if os.path.exists(ign_p) else set()
+    placed, bad = 0, []
+    for n, s in read_fasta(qpath):
+        if n in rows and rows[n].replace("-", "").upper() == s.upper():
+            placed += 1
+        elif n not in ignored:
+            bad.append(n)
+    return placed, len(ignored), bad
+
+
+def full_search_replay(rec, dev, label, need_drops):
+    """Checks of the latest --full-search-results run from what the
+    Recorder kept: the path's flank inputs replayed through the kernel
+    and its plain version (2d bounds; decisions equal the path's, and
+    plain's away from the thresholds); the rows copied to the host are
+    the kept pairs' rows; 500 sampled dropped pairs unreported by native
+    evaluate_targets; 300 sampled kept pairs equal between native domain
+    definition on the copied rows (as the path calls it) and on its own
+    f64 rows. Returns the kernel and plain times on the path's grid."""
+    import numpy as np
+    import torch
+    from witch_tpu.hmm.profile import configure
+    from witch_tpu.native import _domaindef
+    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+    from witch_tpu_torch.pipeline import _native_args
+
+    ens, indices, qcodes, drop = rec.full[-1]
+    banks_t, bank_cols, codes, lens, dec, rows = rec.grid[-1]
+    check(np.array_equal(drop, dec < 0), "%s: the pipeline drops exactly "
+          "the prefilter's decision -1 pairs" % label)
+    c = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    Q, H = dec.shape
+    dec_k = np.full((Q, H), -1, np.int8)
+    near_j = np.zeros((Q, H), bool)
+    plain_rows = {}
+    err_fwd = err_rows = ms = plain_ms = 0.0
+    n_diff = n_far = 0
+    for bt, cols in zip(banks_t, bank_cols):
+        k = flank_rows(bt, c, ln)
+        p = flank_rows_ref(bt, c, ln, elems=1 << 26)
+        torch.cuda.synchronize()
+        err_fwd = max(err_fwd, float((k[0] - p[0]).abs().max()))
+        err_rows = max(err_rows, max(float((a - b_).abs().max())
+                                     for a, b_ in zip(k[1:], p[1:])))
+        ms += cuda_ms(lambda: flank_rows(bt, c, ln), 3)
+        plain_ms += cuda_ms(lambda: flank_rows_ref(bt, c, ln,
+                                                   elems=1 << 26), 1)
+        dk, dp, near, diff, far = _compare_decisions(k, p, lens, ln)
+        n_diff += len(diff)
+        n_far += far
+        for r, j in enumerate(cols):
+            dec_k[:, j] = dk[:, r]
+            near_j[:, j] = near[:, r]
+            if (dec[:, j] >= 0).any():
+                plain_rows[j] = [x[:, r].cpu().numpy()
+                                 for x in (p[3], p[1], p[2])]
+        del k, p
+    say("  %d pairs: kernel %.2f ms, plain %.2f ms; %d pairs with rows "
+        "within 1e-3 of RT1/RT2; %d decisions differ from plain, %d of "
+        "them not near RT1/RT2/RT3" % (Q * H, ms, plain_ms,
+                                       int(near_j.sum()), n_diff, n_far))
+    check(err_fwd <= 5e-3 and err_rows <= 2e-3,
+          "%s: flank kernel vs plain on the path's inputs: |dfwd| %.3g <= "
+          "5e-3 nats, |drows| %.3g <= 2e-3" % (label, err_fwd, err_rows))
+    check(np.array_equal(dec, dec_k) and n_far == 0,
+          "%s: the prefilter's decisions equal the replayed kernel's, and "
+          "plain's except near the thresholds (%d differ, all near)"
+          % (label, n_diff))
+    worst, n_rows = 0.0, 0
+    for j, (qs, mo, pb, pe) in rows.items():
+        if not np.array_equal(qs, np.flatnonzero(dec[:, j] >= 0)):
+            worst = float("inf")
+            break
+        for got, ref in zip((mo, pb, pe), plain_rows[j]):
+            worst = max(worst, float(np.abs(got - ref[qs]).max()))
+        n_rows += len(qs)
+    check(n_rows == int((dec >= 0).sum()) and worst <= 2e-3,
+          "%s: the %d copied row sets are the kept pairs' rows, within "
+          "%.3g <= 2e-3 of plain" % (label, n_rows, worst))
+
+    args_of = {}
+
+    def args(j):
+        if j not in args_of:
+            args_of[j] = _native_args(configure(
+                ens.cores[int(indices[j])], multihit=True))
+        return args_of[j]
+
+    rng = np.random.default_rng(3)
+    dq, dj = np.nonzero(dec < 0)
+    say("  the prefilter dropped %d of %d pairs" % (len(dq), dec.size))
+    if need_drops:
+        check(len(dq) > 0, "%s: the prefilter dropped pairs" % label)
+    pick = rng.choice(len(dq), min(500, len(dq)), replace=False)
+    reported = 0
+    for j in np.unique(dj[pick]):
+        qs = dq[pick][dj[pick] == j]
+        out = _domaindef.evaluate_targets(
+            *args(int(j)), [np.ascontiguousarray(qcodes[q], np.int32)
+                            for q in qs], 42, 200, 1, 8)
+        reported += int(((np.asarray(out[0]) > 0)
+                         & (np.asarray(out[1]) > 0)).sum())
+    check(len(pick) == min(500, len(dq)) and reported == 0,
+          "%s: %d dropped pairs sampled, %d reported by native "
+          "evaluate_targets" % (label, len(pick), reported))
+
+    kq, kj = np.nonzero(dec >= 0)
+    pick = rng.choice(len(kq), min(300, len(kq)), replace=False)
+    nbad = n_cmp = n_near = 0
+    dsb = dse = dss = 0.0
+    for j in np.unique(kj[pick]):
+        qs = np.sort(kq[pick][kj[pick] == j])
+        pos = np.searchsorted(rows[j][0], qs)
+        sub = [np.ascontiguousarray(x[pos]) for x in rows[j][1:]]
+        cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qs]
+        got = _domaindef.evaluate_targets_rows(*args(int(j)), cl, 42, 200,
+                                               1, 1, *sub, 8)
+        nat = _domaindef.evaluate_targets(*args(int(j)), cl, 42, 200, 1, 8)
+        for t, q in enumerate(qs):
+            if near_j[q, j] or _split_near(sub[0][t], sub[1][t],
+                                           sub[2][t], int(lens[q])):
+                n_near += 1
+                continue
+            n_cmp += 1
+            nbad += int(any(int(got[a][t]) != int(nat[a][t])
+                            for a in (0, 1, 6)))
+            dsb = max(dsb, abs(float(got[2][t]) - float(nat[2][t])))
+            dse = max(dse, abs(float(got[4][t]) - float(nat[4][t])))
+            dss = max(dss, abs(float(got[5][t]) - float(nat[5][t])))
+    say("  %d sampled kept pairs (%d near a threshold, skipped): integer "
+        "mismatches %d, |dsbias| %.3g, |dsenv| %.3g, |dsbsum| %.3g"
+        % (len(pick), n_near, nbad, dsb, dse, dss))
+    check(n_cmp > 0 and nbad == 0 and dsb < 2e-3 and dse < 2e-3
+          and dss < 5e-3, "%s: native domain definition on the device rows "
+          "equals native evaluate_targets on %d kept pairs" % (label, n_cmp))
+    return dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
+                plain_ms=plain_ms, pairs=Q * H, dropped=len(dq))
+
+
+def phase_full_search(tmp, rec, dev, result):
+    say("== phase 3b: amino500 with --full-search-results 1")
+    rec.clear()
+    outdir = os.path.join(tmp, "amino500_full")
+    launches = run_amino(outdir, ["--full-search-results", "1"],
+                         "amino500 full search")
+    check(launches["flank"] > 0 and launches["forward"] > 0
+          and launches["oa"] > 0,
+          "full search: forward, flank and oa kernels launched %s"
+          % launches)
+    # every amino500 pair keeps a region: dropped pairs are checked on
+    # the DNA grid of phase 4c
+    result["flank_full_search"] = full_search_replay(
+        rec, dev, "amino500 full search", need_drops=False)
+    return launches
+
+
+def phase_full_search_dna(tmp, rec, dev, result):
+    from witch_tpu.io.fasta import read_fasta, write_fasta
+
+    say("== phase 4c: dna1k backbone, %d queries, --full-search-results 1"
+        % DNA_FULL)
+    data = os.path.join(tmp, "dna1k")
+    qpath = os.path.join(tmp, "dna1k_full.queries.fasta")
+    write_fasta(list(read_fasta(os.path.join(data, "queries.fasta")))
+                [:DNA_FULL], qpath)
+    outdir = os.path.join(tmp, "dna1k_full")
+    rec.clear()
+    out, dt, launches = run_cli([
+        "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+        "-e", os.path.join(data, "backbone.tre"),
+        "-q", qpath, "-d", outdir, "-o", "aligned.fasta",
+        "--full-search-results", "1"])
+    print_breakdown(outdir)
+    say("  wall %.2f s; launches %s" % (dt, launches))
+    check(launches["flank"] > 0 and launches["forward"] > 0
+          and launches["oa"] > 0,
+          "dna1k full search: forward, flank and oa kernels launched %s"
+          % launches)
+    placed, n_ign, bad = _query_rows_ok(outdir, qpath)
+    check(not bad, "dna1k full search: every query placed with its "
+          "residues (%d) or ignored (%d)" % (placed, n_ign))
+    result["flank_full_search_dna"] = full_search_replay(
+        rec, dev, "dna1k full search", need_drops=True)
+    return launches
+
+
+def phase_old_witch(tmp, rec):
+    from witch_tpu_torch.aligner import validate_oa
+
+    say("== phase 3c: amino500 with -m old-witch")
+    rec.clear()
+    outdir = os.path.join(tmp, "amino500_ow")
+    launches = run_amino(outdir, ["-m", "old-witch"], "amino500 old-witch",
+                         oracle=False)
+    qpath = os.path.join(GOLD, AMINO[0] + ".queries.fasta")
+    placed, n_ign, bad = _query_rows_ok(outdir, qpath)
+    check(not bad, "old-witch: every query placed with its residues (%d) "
+          "or ignored (%d)" % (placed, n_ign))
+    _, _, pairs, Ldmax = rec.oa[-1]
+    v = validate_oa(REC_ALIGNER[0], pairs, Ldmax)
+    check(v["above_guard"] == 0,
+          "old-witch: all %d OA pairs equal native above the guard (%d "
+          "mismatched, all below the guard; %d re-aligned)"
+          % (v["n"], v["mismatched"], v["redo"]))
+    return launches
+
+
+def phase_scenario_c(tmp, rec):
+    import numpy as np
+    from witch_tpu_torch.tree_estimate import jc_distances
+
+    say("== phase 4b: scenario C, dna1k without -e (tree estimated)")
+    data = os.path.join(tmp, "dna1k")
+    outdir = os.path.join(tmp, "dna1k_c")
+    rec.clear()
+    out, dt, launches = run_cli([
+        "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+        "-q", os.path.join(data, "queries.fasta"),
+        "-d", outdir, "-o", "aligned.fasta"])
+    print_breakdown(outdir)
+    say("  wall %.2f s; launches %s" % (dt, launches))
+    aln, m, d = rec.counts[-1]
+    K = aln.alphabet.K
+    codes = aln.codes.astype(np.int64)
+    canon = codes < K
+    n, L = codes.shape
+    onehot = np.zeros((n, L, K))
+    r, c = np.nonzero(canon)
+    onehot[r, c, codes[r, c]] = 1.0
+    flat = onehot.reshape(n, L * K)
+    mf = canon.astype(np.float64)
+    m64, d64 = flat @ flat.T, mf @ mf.T
+    check(np.array_equal(m, m64) and np.array_equal(d, d64)
+          and np.array_equal(rec.dist[-1], jc_distances(m64, d64, K)),
+          "scenario C: device identity counts and distances [%d x %d] "
+          "equal numpy float64" % (n, n))
+    placed, n_ign, bad = _query_rows_ok(outdir,
+                                        os.path.join(data, "queries.fasta"))
+    check(not bad, "scenario C: every query placed with its residues (%d) "
+          "or ignored (%d)" % (placed, n_ign))
+    masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
+    bb = read_fasta_dict(os.path.join(data, "backbone.aln.fasta.gz"))
+    badb = [k for k, s in bb.items() if masked.get(k) != s.upper()]
+    check(not badb, "scenario C: %d/%d backbone rows equal the input"
+          % (len(bb) - len(badb), len(bb)))
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "scenario C: forward, null2 and oa launched %s" % launches)
+    return launches
+
+
+def phase_scenario_a(tmp):
+    from witch_tpu.io.fasta import read_fasta, write_fasta
+
+    say("== phase 5: scenario A, -i (300 full-length + 100 fragments), "
+        "--backbone-size 100")
+    data = os.path.join(tmp, "scenA")
+    n_full, n_frag, n_bb = SCEN_A
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                 "make_scale_dataset.py"),
+                    "--n", str(n_full), "--queries", str(n_frag), "--seed",
+                    "20261016", "--out", data], check=True,
+                   capture_output=True, timeout=300)
+    recs = [(n, s.replace("-", "").upper()) for n, s in read_fasta(
+        os.path.join(data, "backbone.aln.fasta.gz"))]
+    recs += [(n, s.upper()) for n, s in read_fasta(
+        os.path.join(data, "queries.fasta"))]
+    inp = os.path.join(data, "input.fasta")
+    write_fasta(recs, inp)
+    outdir = os.path.join(tmp, "scenA_out")
+    out, dt, launches = run_cli(["-i", inp, "-d", outdir, "-o",
+                                 "aligned.fasta", "--backbone-size",
+                                 str(n_bb)])
+    print_breakdown(outdir)
+    say("  wall %.2f s; launches %s" % (dt, launches))
+    placed, n_ign, bad = _query_rows_ok(outdir, inp)
+    check(not bad and placed + n_ign == len(recs),
+          "scenario A: all %d input sequences in the output with their "
+          "residues (%d) or ignored (%d)" % (len(recs), placed, n_ign))
+    masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
+    widths = {len(v) for v in masked.values()}
+    check(len(widths) == 1, "scenario A: %d masked rows flush (width %s)"
+          % (len(masked), widths))
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "scenario A: forward, null2 and oa launched %s" % launches)
     return launches
 
 
@@ -469,34 +1100,53 @@ def main():
     al.DeviceAligner.__init__ = init
 
     result = {}
+    paths = {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
         ROOT, "build"))
     try:
-        banks, codes, lens = phase_forward(dev, result)
+        banks, codes, lens = timed(phase_forward, dev, result)
+        timed(phase_flank, banks, codes, lens, dev, result)
         rec = Recorder()
-        amino_launches = phase_amino(tmp)
-        phase_null2(rec, dev, result)
-        phase_oa(rec, banks, codes, lens, dev, result)
-        dna_launches = phase_dna(tmp, rec)
+        paths["amino500"] = timed(phase_amino, tmp)
+        timed(phase_null2, rec, dev, result)
+        timed(phase_oa, rec, banks, codes, lens, dev, result)
+        timed(phase_wide, rec, dev, result)
+        paths["full_search"] = timed(phase_full_search, tmp, rec, dev,
+                                     result)
+        paths["old_witch"] = timed(phase_old_witch, tmp, rec)
+        paths["dna1k"] = timed(phase_dna, tmp, rec)
+        paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
+                                         dev, result)
+        paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
+        paths["scenario_a"] = timed(phase_scenario_a, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
-    for name, src, rep in (
+    for name, src, rep, main_path in (
             ("forward", "witch_tpu_torch/csrc/forward.cu",
-             "witch_tpu/ops/pallas_forward.py:30"),
+             "witch_tpu/ops/pallas_forward.py:30", "amino500"),
             ("null2", "witch_tpu_torch/csrc/null2.cu",
-             "witch_tpu/ops/pallas_null2.py:54"),
+             "witch_tpu/ops/pallas_null2.py:54", "amino500"),
             ("oa", "witch_tpu_torch/csrc/oa.cu",
-             "witch_tpu/ops/pallas_oa.py:55")):
+             "witch_tpu/ops/pallas_oa.py:55", "amino500"),
+            ("flank", "witch_tpu_torch/csrc/flank.cu",
+             "witch_tpu/hmm/flank_device.py:52", "full_search")):
         r = result[name]
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=rep,
-                            launches=amino_launches[name],
-                            launches_dna1k=dna_launches[name],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+        k = dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=paths[main_path][name],
+                 launches_by_path={p: paths[p][name] for p in paths},
+                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"])
+        for tag in ("wide", "full_search", "full_search_dna"):
+            r2 = result.get("%s_%s" % (name, tag))
+            if r2:
+                k.update({"ms_" + tag: r2["ms"],
+                          "plain_ms_" + tag: r2["plain_ms"],
+                          "max_abs_err_" + tag: r2["max_abs_err"]})
+                k["max_abs_err"] = max(k["max_abs_err"], r2["max_abs_err"])
+        kernels.append(k)
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

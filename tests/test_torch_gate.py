@@ -142,3 +142,27 @@ def test_null2_kernel_on_card_matches_plain():
     sp, dp = null2_nats_ref(bt, *pk)
     torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8191, 16384])
+def test_null2_kernel_wide_models_match_plain(M):
+    """Mp 8,224 and 16,416 (the 16,384-state cap); at 16,416 the four
+    working rows exceed shared memory and live in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu_torch.ops.null2 import _pack, null2_nats, null2_nats_ref
+    bank = build_banks([synth_core(M, 4, 13)], uniform=True)[0]
+    rng = np.random.default_rng(M)
+    base = np.random.default_rng(13).integers(0, 4, M)
+    entries = []
+    for _ in range(4):
+        a = int(rng.integers(0, M - 200))
+        q = base[a:a + int(rng.integers(80, 200))].astype(np.int32)
+        entries.append((0, q[5:len(q) - 5], len(q)))
+    bt = bank_to_torch(bank, "cuda")
+    pk = _pack(entries, "cuda")
+    sk, dk = null2_nats(bt, *pk)
+    sp, dp = null2_nats_ref(bt, *pk)
+    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)

@@ -93,3 +93,50 @@ def test_oa_kernel_on_card_matches_plain():
             assert np.array_equal(ck.cpu().numpy()[off[t]:off[t] + len(c)],
                                   cp.cpu().numpy()[off[t]:off[t] + len(c)])
     np.testing.assert_allclose(sk[:, 1], sp[:, 1])
+
+
+def _wide_case(M, seed):
+    """One model of M states (build_banks pads M to a multiple of 128,
+    the port adds the state-0 lane and pads to 32 lanes) and query
+    fragments of its consensus."""
+    alpha = ALPHABETS["dna"]
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, M)
+    rows = np.array([np.where(rng.random(M) < 0.1, rng.integers(0, 4, M),
+                              base) for _ in range(4)])
+    core = build_hmm(rows.astype(np.uint8), alpha, "dna", name="wide")
+    bank = build_banks([core], uniform=True)[0]
+    pairs = []
+    for _ in range(4):
+        a = int(rng.integers(0, M - 200))
+        q = base[a:a + int(rng.integers(80, 200))].copy()
+        q[rng.random(len(q)) < 0.05] = rng.integers(0, 4)
+        pairs.append((0, q.astype(np.int32)))
+    return bank, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8191, 16384])
+def test_oa_kernel_wide_models_match_plain(M):
+    """Mp 8,224 and 16,416 (the 16,384-state cap): the working rows no
+    longer fit in shared memory and live in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.oa import (ROW_BYTES, oa_nats, oa_ref,
+                                        pack_pairs)
+    bank, pairs = _wide_case(M, 5)
+    bt = bank_to_torch(bank, "cuda")
+    assert bt.Mp == -(-M // 128) * 128 + 32
+    assert ROW_BYTES * bt.Mp > _build.SMEM_ROWS_MAX
+    pk = pack_pairs(bt, pairs)
+    ck, sk = oa_nats(bt, *pk, Ldmax=200)
+    cp, sp = oa_ref(bt, *pk)
+    ck, sk, cp, sp = (x.cpu().numpy() for x in (ck, sk, cp, sp))
+    off = pk[3].cpu().numpy()
+    np.testing.assert_array_equal(sk[:, 1], sp[:, 1])
+    assert sk[:, 1].all()
+    for t, (_, c) in enumerate(pairs):
+        if sk[t, 0] >= GUARD:
+            np.testing.assert_array_equal(ck[off[t]:off[t] + len(c)],
+                                          cp[off[t]:off[t] + len(c)])

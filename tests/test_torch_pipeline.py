@@ -17,9 +17,12 @@ GOLD = os.path.join(HERE, "golden")
 
 PORT_MODULES = ("witch_tpu_torch", "witch_tpu_torch.pipeline",
                 "witch_tpu_torch.aligner", "witch_tpu_torch.hmm.gate_device",
+                "witch_tpu_torch.hmm.flank_device",
                 "witch_tpu_torch.ops.forward", "witch_tpu_torch.ops.null2",
-                "witch_tpu_torch.ops.oa", "witch_tpu_torch.device",
-                "witch_tpu_torch._build", "witch_tpu_torch.__main__")
+                "witch_tpu_torch.ops.oa", "witch_tpu_torch.ops.flank",
+                "witch_tpu_torch.tree_estimate", "witch_tpu_torch.backbone",
+                "witch_tpu_torch.device", "witch_tpu_torch._build",
+                "witch_tpu_torch.__main__")
 
 
 def _read_fasta_dict(fh):
@@ -87,15 +90,22 @@ def test_cli_without_cuda_raises(tmp_path):
     assert not (tmp_path / "out").exists()      # nothing ran on the CPU
 
 
-def test_unported_modes_raise(tmp_path):
+def test_unported_modes_raise(tmp_path, monkeypatch):
+    """What is still unported raises, naming its ROADMAP queue: query
+    sharding (WITCH_TPU_SHARD) and the device pair-HMM embedding of the
+    scenario-A backbone aligner (WITCH_TPU_DEVICE_EMBED)."""
     from witch_tpu.cli import init_parser
     from witch_tpu.config import build_configs
     from witch_tpu_torch.pipeline import main_alignment_process
-    base = ["-q", os.path.join(GOLD, "ref_amino.queries.fasta"),
-            "-d", str(tmp_path / "o"), "-o", "a.fasta"]
-    for extra in (["-i", os.path.join(GOLD, "ref_amino.queries.fasta")],
-                  ["-b", os.path.join(GOLD, "ref_amino.backbone.fasta"),
-                   "-m", "old-witch"]):
-        build_configs(init_parser(), base + extra)
+    q = os.path.join(GOLD, "ref_amino.queries.fasta")
+    for env, extra in (
+            (("WITCH_TPU_SHARD", "0/2"),
+             ["-b", os.path.join(GOLD, "ref_amino.backbone.fasta"),
+              "-e", os.path.join(GOLD, "ref_amino.backbone.tre")]),
+            (("WITCH_TPU_DEVICE_EMBED", "1"), ["-i", q])):
+        monkeypatch.setenv(*env)
+        build_configs(init_parser(), ["-q", q, "-d", str(tmp_path / "o"),
+                                      "-o", "a.fasta"] + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main_alignment_process(device="cpu")
+        monkeypatch.delenv(env[0])

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-All kernel sources (csrc/*.cu) compile in ONE nvcc call for sm_90a into
-a shared library with a plain C interface under build/witch_tpu_torch/
-(named by a hash of the sources, so an edited source rebuilds). Each C
-entry launches on the caller's stream and returns cudaGetLastError();
-the wrappers raise on any nonzero code.
+Each kernel source (csrc/*.cu) compiles for sm_90a in its own nvcc
+process, all started together, and one more nvcc call links the objects
+into a shared library with a plain C interface under
+build/witch_tpu_torch/ (named by a hash of the sources, so an edited
+source rebuilds). Each C entry launches on the caller's stream and
+returns cudaGetLastError(); the wrappers raise on any nonzero code.
 
 Nothing here runs at import: nvcc and ctypes are reached only through
 lib(), which the kernel wrappers call when given CUDA tensors.
@@ -20,14 +21,19 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("forward.cu", "null2.cu", "oa.cu")
+SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "witch_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+
+# Dynamic shared memory a kernel's working rows may take: sm_90's 227 KB
+# per block less room for the kernels' static shared scratch. Wider rows
+# go to a device buffer (the wrappers pick the layout per launch).
+SMEM_ROWS_MAX = 232448 - 1024
 
 # Kernel launches per wrapper since the last reset (plain integers: the
 # wrappers add one where they launch their kernel, and nowhere else).
-LAUNCHES = {"forward": 0, "null2": 0, "oa": 0}
+LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -57,6 +63,22 @@ def _source_hash() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with nvcc's output on the
+    first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append("nvcc failed (rc=%d): %s\n%s"
+                          % (p.returncode, " ".join(cmd), out[-4000:]))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library (if not built yet);
     returns its path. Raises with nvcc's output on failure."""
@@ -64,14 +86,15 @@ def build() -> str:
     out = os.path.join(BUILD_DIR, "libwitch_kernels_%s.so" % _source_hash())
     if os.path.exists(out):
         return out
-    tmp = out + ".%d.tmp" % os.getpid()
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [
-        os.path.join(CSRC, s) for s in SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed (rc=%d): %s\n%s"
-                           % (r.returncode, " ".join(cmd),
-                              (r.stdout + r.stderr)[-4000:]))
+    nvcc = _nvcc()
+    tag = "%d" % os.getpid()
+    objs = [os.path.join(BUILD_DIR, "%s.%s.o" % (s, tag)) for s in SOURCES]
+    _run_all([[nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)]
+              for s, o in zip(SOURCES, objs)])
+    tmp = out + ".%s.tmp" % tag
+    _run_all([[nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, out)
     return out
 
@@ -86,9 +109,11 @@ def lib():
             so = ctypes.CDLL(path)
             P, I = ctypes.c_void_p, ctypes.c_int
             so.witch_forward_nats.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-            so.witch_null2.argtypes = [P] * 11 + [I, I, I, I, P]
-            so.witch_oa.argtypes = [P] * 15 + [I, I, I, I, P]
-            for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa):
+            so.witch_null2.argtypes = [P] * 12 + [I, I, I, I, P]
+            so.witch_oa.argtypes = [P] * 16 + [I, I, I, I, P]
+            so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]
+            for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
+                       so.witch_flank):
                 fn.restype = I
             _lib = so
         return _lib

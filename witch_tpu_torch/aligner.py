@@ -1,5 +1,6 @@
 """Per-query alignment stage on the device: adaptive HMM selection ->
-fused posterior+OA kernel -> weighted merge DP (witch-ng mode).
+fused posterior+OA kernel -> merge (the witch-ng weighted DP, or the
+old-witch GCM merge).
 
 Counterpart of witch_tpu/aligner.py (DeviceAligner's OA branch and
 align_all_queries). Pairs whose decision margin falls below the guard
@@ -123,11 +124,9 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
                       device, banks=None, use_weight: bool = True,
                       done: Optional[Dict[str, str]] = None,
                       checkpoint_cb=None, mode: str = "witch-ng"):
-    """Returns (rows [(name, row)], ignored names)."""
-    if mode != "witch-ng":
-        raise NotImplementedError(
-            "-m %s: only witch-ng mode is ported (ROADMAP.md, Queue 1: "
-            "old-witch mode)" % mode)
+    """Returns (rows [(name, row)], ignored names). mode="old-witch"
+    merges with the GCM/MCL path (witch_tpu.ops.gcm) instead of the
+    witch-ng banded DP."""
     done = done or {}
     selections, ignored = select_pairs(qnames, weights, use_weight)
     rows: List[Tuple[str, str]] = []
@@ -152,22 +151,76 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
 
     t0 = time.time()
 
-    def merge_one(qname):
-        per_hmm = [(cols_of[(qname, idx)], ens.retained_columns[idx],
-                    ens.nongaps_per_column[idx], float(w))
-                   for idx, w in selections[qname]]
-        return align_query_row(qseqs[name_to_i[qname]], backbone_length,
-                               per_hmm)
+    def per_hmm(qname):
+        return [(cols_of[(qname, idx)], ens.retained_columns[idx],
+                 ens.nongaps_per_column[idx], float(w))
+                for idx, w in selections[qname]]
 
-    n_thr = max(1, min(8, int(getattr(Configs, "num_cpus", 4))))
-    with ThreadPoolExecutor(max_workers=n_thr) as ex:
-        for qname, row in zip(todo, ex.map(merge_one, todo)):
-            if not row:
-                ignored.append(qname)
-                continue
-            rows.append((qname, row))
-            if checkpoint_cb:
-                checkpoint_cb(qname, row)
+    def keep(qname, row):
+        if not row:
+            ignored.append(qname)
+            return
+        rows.append((qname, row))
+        if checkpoint_cb:
+            checkpoint_cb(qname, row)
+
+    if mode == "old-witch":
+        for qname, row in _gcm_rows(todo, per_hmm, qseqs, name_to_i,
+                                    backbone_length):
+            keep(qname, row)
+    else:
+        def merge_one(qname):
+            return align_query_row(qseqs[name_to_i[qname]],
+                                   backbone_length, per_hmm(qname))
+
+        n_thr = max(1, min(8, int(getattr(Configs, "num_cpus", 4))))
+        with ThreadPoolExecutor(max_workers=n_thr) as ex:
+            for qname, row in zip(todo, ex.map(merge_one, todo)):
+                keep(qname, row)
     Configs.runtime("  align: merge DP for %d queries (s): %f"
                     % (len(todo), time.time() - t0))
     return rows, ignored
+
+
+def _gcm_rows(todo, per_hmm, qseqs, name_to_i, backbone_length):
+    """old-witch merge, yielding (qname, row) in order: the loop of
+    witch_tpu/aligner.py:449-500, copied (that module's aligner classes
+    reach JAX). -s/--subset-size queries share one MCL clustering per
+    batch; --timeout bounds each query's GCM merge, re-running it in
+    witch-ng mode as the reference re-queues timed-out GCM tasks
+    (witch_msa/gcmm/results_handler.py:167-180)."""
+    from witch_tpu.ops.gcm import gcm_align_query_row
+    from witch_tpu.ops.merge_dp import sparse_edges
+
+    s_size = max(1, int(getattr(Configs, "subset_size", 1)))
+    cluster = getattr(Configs, "graphclustermethod", "mcl")
+    if cluster in ("mlrmcl", "rg"):
+        Configs.warning("graphclustermethod %s not built; using mcl"
+                        % cluster)
+        cluster = "mcl"
+    if getattr(Configs, "graphtracemethod", "minclusters") != "minclusters":
+        Configs.log("graphtracemethod %s: all trace methods reduce to the "
+                    "exact banded DP with two constraints"
+                    % Configs.graphtracemethod)
+    if getattr(Configs, "graphtraceoptimize", "false") == "true":
+        Configs.log("graphtraceoptimize: trace is already optimal for "
+                    "2-constraint merges; optimization is an identity")
+    timeout = float(getattr(Configs, "timeout", 120) or 0)
+    inflation = float(getattr(Configs, "inflation_factor", 4.0))
+    for s0 in range(0, len(todo), s_size):
+        batch = todo[s0:s0 + s_size]
+        for qname in batch:
+            qi = name_to_i[qname]
+            ph = per_hmm(qname)
+            t0 = time.time()
+            row = gcm_align_query_row(
+                qseqs[qi], backbone_length, ph, inflation=inflation,
+                clustermethod=cluster,
+                extra_edges=[sparse_edges(per_hmm(s))
+                             for s in batch if s != qname])
+            if timeout and time.time() - t0 > timeout:
+                Configs.warning(
+                    "query %s GCM merge exceeded --timeout %.0fs; "
+                    "re-running in witch-ng mode" % (qname, timeout))
+                row = align_query_row(qseqs[qi], backbone_length, ph)
+            yield qname, row

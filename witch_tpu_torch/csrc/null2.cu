@@ -21,10 +21,16 @@
 // straight to a device scratch buffer [n_chunk, Ld+1, 2, Mp] (the
 // wrapper sizes the chunk), and the Backward reads them back: no
 // recomputation. Row updates, delete chains and rescaling follow
-// forward.cu (common.cuh).
+// forward.cu (common.cuh). The four working rows (16 * Mp bytes) live in
+// shared memory up to Mp ~14,400; for wider models (up to the 16,384-
+// state cap) the wrapper passes `rows_g`, and each CTA keeps them in its
+// own slice of that device buffer instead (L1/L2-cached). The layout is a
+// template parameter, so the shared-memory instance keeps shared-memory
+// addressing.
 
 #include "common.cuh"
 
+template <bool kDevRows>
 __global__ void null2_kernel(const float *__restrict__ em,
                              const float *__restrict__ trans,
                              const int32_t *__restrict__ model_of,
@@ -35,11 +41,13 @@ __global__ void null2_kernel(const float *__restrict__ em,
                              float *__restrict__ rows,
                              float *__restrict__ fled,
                              float *__restrict__ scal,
-                             float *__restrict__ n2dot, int Mp, int K,
+                             float *__restrict__ n2dot,
+                             float *__restrict__ rows_g, int Mp, int K,
                              int Ldmax) {
     extern __shared__ float smem[];
-    float *sM = smem, *sI = smem + Mp, *sD = smem + 2 * Mp,
-          *sU = smem + 3 * Mp;
+    float *base = kDevRows ? rows_g + (size_t)blockIdx.x * 4 * Mp : smem;
+    float *sM = base, *sI = base + Mp, *sD = base + 2 * Mp,
+          *sU = base + 3 * Mp;
     __shared__ Aff shA[NWARP];
     __shared__ float shR[2 * NWARP];
     const int en = blockIdx.x;
@@ -146,14 +154,21 @@ extern "C" int witch_null2(const float *em, const float *trans,
                            const int32_t *model_of, const int32_t *codes,
                            const int64_t *code_off, const int32_t *lds,
                            const float *pmoves, float *rows, float *fled,
-                           float *scal, float *n2dot, int n, int Mp, int K,
-                           int Ldmax, void *stream) {
+                           float *scal, float *n2dot, float *rows_g, int n,
+                           int Mp, int K, int Ldmax, void *stream) {
+    if (rows_g) {
+        if (n > 0)
+            null2_kernel<true><<<(unsigned)n, NT, 0, (cudaStream_t)stream>>>(
+                em, trans, model_of, codes, code_off, lds, pmoves, rows, fled,
+                scal, n2dot, rows_g, Mp, K, Ldmax);
+        return (int)cudaGetLastError();
+    }
     const size_t smem = (size_t)4 * Mp * sizeof(float);
-    cudaError_t err = set_smem((const void *)null2_kernel, smem);
+    cudaError_t err = set_smem((const void *)null2_kernel<false>, smem);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return 0;
-    null2_kernel<<<(unsigned)n, NT, smem, (cudaStream_t)stream>>>(
-        em, trans, model_of, codes, code_off, lds, pmoves, rows, fled, scal,
-        n2dot, Mp, K, Ldmax);
+    if (n > 0)
+        null2_kernel<false><<<(unsigned)n, NT, smem, (cudaStream_t)stream>>>(
+            em, trans, model_of, codes, code_off, lds, pmoves, rows, fled,
+            scal, n2dot, nullptr, Mp, K, Ldmax);
     return (int)cudaGetLastError();
 }

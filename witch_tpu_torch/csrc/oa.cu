@@ -30,10 +30,16 @@
 // written), ~12 MB per pair at L = 448, Mp = 2816. The wrapper runs a
 // chunk of pairs per launch so that scratch stays at a few GB.
 //
-// Design: f32 odds rows and f64 OA rows in shared memory (36 * Mp bytes,
-// ~100 KB at Mp = 2816; Mp up to ~6400 fits), updated in place as in
-// forward.cu; no checkpoint/recompute (the TPU's answer to a small
-// VMEM); f64 OA accumulators instead of the TPU's double-float pairs.
+// Design: f32 odds rows and f64 OA rows (36 * Mp bytes, ~100 KB at
+// Mp = 2816) updated in place as in forward.cu, in shared memory up to
+// Mp ~6,400; for wider models (up to the 16,384-state cap) the wrapper
+// passes `rows_g` and each CTA keeps them in its own slice of that
+// device buffer (L1/L2-cached). The layout is a template parameter, so
+// the shared-memory instance addresses its rows as shared memory (a
+// pointer chosen at run time would make every row access a generic
+// one); no checkpoint/recompute (the TPU's
+// answer to a small VMEM); f64 OA accumulators instead of the TPU's
+// double-float pairs.
 
 #include <float.h>
 #include <math.h>
@@ -42,6 +48,8 @@
 
 static constexpr double NEGD = -(double)FLT_MAX;
 static constexpr float LN2F = 0.693147182464599609375f;   // f32(ln 2)
+// bytes of working rows per model state: oM oI oD (f64) + fM fI fD (f32)
+static constexpr size_t OA_ROW_BYTES = 3 * (sizeof(double) + sizeof(float));
 
 struct ArgMax {
     double v;
@@ -87,6 +95,7 @@ static __device__ double prefix_max_enter(double m, double *sh) {
     return enter;
 }
 
+template <bool kDevRows>
 __global__ void oa_kernel(const float *__restrict__ em,
                           const float *__restrict__ trans,
                           const int32_t *__restrict__ model_of,
@@ -99,10 +108,13 @@ __global__ void oa_kernel(const float *__restrict__ em,
                           uint8_t *__restrict__ ptr, int32_t *__restrict__ rowk,
                           uint8_t *__restrict__ rowf,
                           int32_t *__restrict__ cols, float *__restrict__ stat,
-                          int Mp, int K, int Ldmax) {
+                          void *rows_g, int Mp, int K, int Ldmax) {
     extern __shared__ double smem_d[];
-    double *oM = smem_d, *oI = smem_d + Mp, *oD = smem_d + 2 * Mp;
-    float *fM = (float *)(smem_d + 3 * Mp), *fI = fM + Mp, *fD = fM + 2 * Mp;
+    double *base = kDevRows ? (double *)((char *)rows_g + (size_t)blockIdx.x *
+                                                             OA_ROW_BYTES * Mp)
+                            : smem_d;
+    double *oM = base, *oI = base + Mp, *oD = base + 2 * Mp;
+    float *fM = (float *)(base + 3 * Mp), *fI = fM + Mp, *fD = fM + 2 * Mp;
     __shared__ Aff shA[NWARP];
     __shared__ float shR[2 * NWARP];
     __shared__ double shD[2 * NWARP];
@@ -346,14 +358,21 @@ extern "C" int witch_oa(const float *em, const float *trans,
                         const int32_t *lens, const float *pmoves,
                         float *brows, float *bspec, uint8_t *ptr,
                         int32_t *rowk, uint8_t *rowf, int32_t *cols,
-                        float *stat, int n, int Mp, int K, int Ldmax,
-                        void *stream) {
-    const size_t smem = (size_t)3 * Mp * (sizeof(double) + sizeof(float));
-    cudaError_t err = set_smem((const void *)oa_kernel, smem);
+                        float *stat, void *rows_g, int n, int Mp, int K,
+                        int Ldmax, void *stream) {
+    if (rows_g) {
+        if (n > 0)
+            oa_kernel<true><<<(unsigned)n, NT, 0, (cudaStream_t)stream>>>(
+                em, trans, model_of, ms, codes, code_off, lens, pmoves, brows,
+                bspec, ptr, rowk, rowf, cols, stat, rows_g, Mp, K, Ldmax);
+        return (int)cudaGetLastError();
+    }
+    const size_t smem = OA_ROW_BYTES * Mp;
+    cudaError_t err = set_smem((const void *)oa_kernel<false>, smem);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return 0;
-    oa_kernel<<<(unsigned)n, NT, smem, (cudaStream_t)stream>>>(
-        em, trans, model_of, ms, codes, code_off, lens, pmoves, brows, bspec,
-        ptr, rowk, rowf, cols, stat, Mp, K, Ldmax);
+    if (n > 0)
+        oa_kernel<false><<<(unsigned)n, NT, smem, (cudaStream_t)stream>>>(
+            em, trans, model_of, ms, codes, code_off, lens, pmoves, brows,
+            bspec, ptr, rowk, rowf, cols, stat, nullptr, Mp, K, Ldmax);
     return (int)cudaGetLastError();
 }

@@ -173,12 +173,16 @@ def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove):
     lds = lds.to(torch.int32).contiguous()
     pmove = pmove.to(torch.float32).contiguous()
     Ldmax = int(lds.max().item())
-    per = (Ldmax + 1) * (2 * bt.Mp + 1) * 4
+    # the four working rows: shared memory, or a device slice per CTA
+    in_dev = 4 * bt.Mp * 4 > _build.SMEM_ROWS_MAX
+    per = (Ldmax + 1) * (2 * bt.Mp + 1) * 4 + (16 * bt.Mp if in_dev else 0)
     chunk = max(1, min(n, SCRATCH_BYTES // per))
     rows_s = torch.empty(chunk * (Ldmax + 1) * 2 * bt.Mp,
                          dtype=torch.float32, device=dev)
     fled_s = torch.empty(chunk * (Ldmax + 1), dtype=torch.float32,
                          device=dev)
+    work = (torch.empty(chunk * 4 * bt.Mp, dtype=torch.float32, device=dev)
+            if in_dev else None)
     lib = _build.lib()
     stream = _build.stream_ptr(dev)
     for c0 in range(0, n, chunk):
@@ -187,8 +191,9 @@ def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove):
             bt.em.data_ptr(), bt.trans.data_ptr(), rows[c0:].data_ptr(),
             flat.data_ptr(), off[c0:].data_ptr(), lds[c0:].data_ptr(),
             pmove[c0:].data_ptr(), rows_s.data_ptr(), fled_s.data_ptr(),
-            scal[c0:].data_ptr(), n2dot[c0:].data_ptr(), m, bt.Mp, bt.K,
-            Ldmax, stream)
+            scal[c0:].data_ptr(), n2dot[c0:].data_ptr(),
+            work.data_ptr() if in_dev else None, m, bt.Mp, bt.K, Ldmax,
+            stream)
         _build.check(rc, "null2")
     return scal, n2dot
 

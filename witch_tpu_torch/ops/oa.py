@@ -26,7 +26,7 @@ from ._plain import (SCALE_FLOOR, bck_chain, bck_chain_coeffs, fwd_chain,
 NEG = float(-np.finfo(np.float32).max)
 LN2 = float(np.float32(np.log(2.0)))
 SCRATCH_BYTES = 2 << 30
-SMEM_BYTES = 232448          # per-block shared memory on sm_90
+ROW_BYTES = 3 * (8 + 4)      # oM oI oD (f64) + fM fI fD (f32) per state
 
 
 def bank_strictly_positive(bank) -> bool:
@@ -288,11 +288,6 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
         return oa_ref(bt, rows, ms, flat, off, lens, pmove)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    smem = 3 * bt.Mp * (8 + 4)
-    if smem > SMEM_BYTES:
-        raise ValueError("model width Mp=%d exceeds the OA kernel's "
-                         "shared-memory rows (%d bytes > %d)"
-                         % (bt.Mp, smem, SMEM_BYTES))
     n = rows.shape[0]
     cols = torch.full((flat.shape[0],), -1, dtype=torch.int32, device=dev)
     stat = torch.zeros((n, 4), dtype=torch.float32, device=dev)
@@ -306,7 +301,10 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
     pmove = pmove.to(torch.float32).contiguous()
     Ldmax = max(int(Ldmax), int(lens.max().item()))
     Mp = bt.Mp
-    per = ((Ldmax + 1) * (2 * Mp + 3) * 4 + Ldmax * (Mp + 5))
+    # the six working rows: shared memory, or a device slice per CTA
+    in_dev = ROW_BYTES * Mp > _build.SMEM_ROWS_MAX
+    per = ((Ldmax + 1) * (2 * Mp + 3) * 4 + Ldmax * (Mp + 5)
+           + (ROW_BYTES * Mp if in_dev else 0))
     chunk = max(1, min(n, SCRATCH_BYTES // per))
     brows = torch.empty(chunk * (Ldmax + 1) * 2 * Mp, dtype=torch.float32,
                         device=dev)
@@ -315,6 +313,8 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
     ptr = torch.empty(chunk * Ldmax * Mp, dtype=torch.uint8, device=dev)
     rowk = torch.empty(chunk * Ldmax, dtype=torch.int32, device=dev)
     rowf = torch.empty(chunk * Ldmax, dtype=torch.uint8, device=dev)
+    work = (torch.empty(chunk * ROW_BYTES * Mp, dtype=torch.uint8,
+                        device=dev) if in_dev else None)
     lib = _build.lib()
     stream = _build.stream_ptr(dev)
     for c0 in range(0, n, chunk):
@@ -324,8 +324,8 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
             ms[c0:].data_ptr(), flat.data_ptr(), off[c0:].data_ptr(),
             lens[c0:].data_ptr(), pmove[c0:].data_ptr(), brows.data_ptr(),
             bspec.data_ptr(), ptr.data_ptr(), rowk.data_ptr(),
-            rowf.data_ptr(), cols.data_ptr(), stat[c0:].data_ptr(), m, Mp,
-            bt.K, Ldmax, stream)
+            rowf.data_ptr(), cols.data_ptr(), stat[c0:].data_ptr(),
+            work.data_ptr() if in_dev else None, m, Mp, bt.K, Ldmax, stream)
         _build.check(rc, "oa")
     return cols, stat
 

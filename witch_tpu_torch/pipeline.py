@@ -1,15 +1,21 @@
-"""Scenario-D pipeline on the GPU (the reference's mainAlignmentProcess,
+"""The WITCH pipeline on the GPU (the reference's mainAlignmentProcess,
 witch_msa/gcmm/gcmm.py:93-267), ported from witch_tpu/pipeline.py.
 
 Stages:
-  1. backbone alignment + tree (scenario D) -> eHMM ensemble (host,
+  1. backbone alignment and tree: given (scenario D), the tree estimated
+     (scenario C, tree_estimate.py) or both made from unaligned input
+     (scenario A, backbone.py) -> eHMM ensemble (host,
      witch_tpu.ensemble) or a reused decomposition directory
   2. all-vs-all Forward pre-scores on the device (ops/forward.py)
   3. candidate selection, then the reporting gate: envelope null2 on the
      device (hmm/gate_device.py), regions, trace ensembles and the exact
-     f64 Forward on the native engine; the exact-f32 print overlay
+     f64 Forward on the native engine; or, with --full-search-results,
+     the whole grid through the device flank prefilter
+     (hmm/flank_device.py) and native domain definition; then the
+     exact-f32 print overlay
   4. weights (witch_tpu.weighting)
-  5. per-query posterior+OA on the device (aligner.py) and merge DP
+  5. per-query posterior+OA on the device (aligner.py) and the merge
+     (witch-ng DP or old-witch GCM)
   6. transitive merge into the backbone; outputs
 
 The JAX-free helpers of witch_tpu/pipeline.py (_encode_queries,
@@ -156,28 +162,13 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
         Configs.runtime("  scoring: device Forward Mp=%d H=%d (s): %f"
                         % (bt.Mp, bt.H, time.time() - t1))
 
-    # Candidate selection: each query's weight-rank top candidates (see
-    # witch_tpu/pipeline.py:compute_scores for the rationale).
     valid = np.ones((Q, H), bool)
     reported = pre - BIAS_FLOOR_BITS
     size_arr = np.array([ens.cores[i].nseq for i in indices], np.float64)
-    adj = pre + np.log2(size_arr)[None, :]
     TOPT = min(H, max(18, int(Configs.num_hmms) + 8))
-    NEAR = min(H, int(Configs.num_hmms) + 4)
-    t0 = time.time()
-    by_j: Dict[int, List[int]] = {}
-    for q in owned:
-        top = np.argsort(-adj[q], kind="stable")[:TOPT]
-        depth = NEAR if np.all(pre[q, top[:NEAR]] >= GATE_SAFE) else TOPT
-        for j in top[:depth]:
-            by_j.setdefault(int(j), []).append(q)
     gate_ok = np.ones((Q, H), bool)
     evaluated = np.zeros((Q, H), bool)
     nthreads = max(1, min(8, Configs.num_cpus))
-    # the gate's flank rows come from the native AVX-512 scan (raises on
-    # an engine built without AVX-512)
-    flank_fn = _domaindef.flank_targets_simd
-
     x32 = getattr(_domaindef, "exact_scores32", None)
     mode32 = os.environ.get("WITCH_TPU_EXACT_PRINTS", "")
     band32: Dict[int, set] = {}
@@ -213,8 +204,125 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
                 band_of[(q, j)] = band
         return seq, eps
 
-    # ---- device gate: flank rows (native), f64 Forward (native, in a
-    # side thread), envelope null2 (device) ----
+    full = getattr(Configs, "full_search_results", False)
+    if full:
+        drop = _full_search_gate(ens, indices, banks, banks_t, col_of,
+                                 codes, lens, qcodes, consume, nthreads)
+    else:
+        # candidate selection: each query's weight-rank top candidates
+        # (see witch_tpu/pipeline.py:compute_scores for the rationale)
+        adj = pre + np.log2(size_arr)[None, :]
+        NEAR = min(H, int(Configs.num_hmms) + 4)
+        t0 = time.time()
+        by_j: Dict[int, List[int]] = {}
+        for q in owned:
+            top = np.argsort(-adj[q], kind="stable")[:TOPT]
+            depth = NEAR if np.all(pre[q, top[:NEAR]] >= GATE_SAFE) \
+                else TOPT
+            for j in top[:depth]:
+                by_j.setdefault(int(j), []).append(q)
+        _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
+                     consume, nthreads, t0)
+
+    # ---- exact-f32 print overlay (native, print-boundary pairs) ----
+    if band32:
+        t0x = time.time()
+
+        def x32_model(item):
+            j, qset = item
+            qlist = sorted(qset)
+            xargs = _native_args(configure(ens.cores[int(indices[j])],
+                                           multihit=True))
+            cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qlist]
+            okx, seqx, _ = x32(*xargs, cl, 1)
+            return j, qlist, okx, seqx
+
+        n32 = ok32 = 0
+        band_cover = 0.0
+        with ThreadPoolExecutor(max_workers=nthreads) as ex:
+            for j, qlist, okx, seqx in ex.map(x32_model,
+                                              sorted(band32.items())):
+                for t, q in enumerate(qlist):
+                    n32 += 1
+                    if okx[t]:
+                        ok32 += 1
+                        b = band_of.get((q, j))
+                        if b:
+                            d = abs(float(seqx[t]) - reported[q, j])
+                            band_cover = max(band_cover, d / b)
+                        reported[q, j] = float(seqx[t])
+        Configs.runtime("  scoring: exact-f32 print overlay %d/%d pairs "
+                        "(band cover %.2f) (s): %f"
+                        % (ok32, n32, band_cover, time.time() - t0x))
+        if band_cover >= 1.0 and mode32 != "full":
+            Configs.warning(
+                "exact-f32 overlay: observed |f32-f64| delta (%.1fx band) "
+                "exceeds the empirical candidate band on this data; rerun "
+                "with WITCH_TPU_EXACT_PRINTS=full for guaranteed "
+                "print-exactness" % band_cover)
+    if full:
+        # every pair was evaluated: valid is the complete reported set
+        valid = gate_ok.copy()
+        valid[drop] = False
+    else:
+        valid = _candidate_walk(reported, valid, pre, evaluated, gate_ok,
+                                size_arr, owned, TOPT)
+    return np.round(reported, 1), valid, indices, banks
+
+
+def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
+                      qcodes, consume, nthreads):
+    """--full-search-results: the device flank prefilter classifies the
+    whole grid; pairs with a region run native domain definition on the
+    device's rows (evaluate_targets_rows, f64 Forward included). The
+    device null2 gate is not used here (witch_tpu/pipeline.py:528-535).
+    Returns drop [Q, H] (the pairs the prefilter found no region in)."""
+    from witch_tpu.hmm.profile import configure
+    from witch_tpu.native import _domaindef
+
+    from .hmm.flank_device import prefilter_grid
+
+    Q, H = len(qcodes), len(indices)
+    t0 = time.time()
+    dec, rows = prefilter_grid(
+        banks_t, [[col_of[int(idx)] for idx in b.hmm_indices]
+                  for b in banks], codes, lens, H)
+    drop = dec < 0
+    Configs.runtime("  scoring: device gate prefilter dropped %d/%d pairs "
+                    "(s): %f" % (int(drop.sum()), Q * H, time.time() - t0))
+    by_j = {j: [int(q) for q in rows[j][0]] for j in sorted(rows)}
+    t0 = time.time()
+
+    def eval_model(j):
+        qs, mo, pb, pe = rows[j]
+        args = _native_args(configure(ens.cores[int(indices[j])],
+                                      multihit=True))
+        cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qs]
+        return j, _domaindef.evaluate_targets_rows(
+            *args, cl, 42, 200, 1, 1, mo, pb, pe, 1)
+
+    n_pairs = 0
+    with ThreadPoolExecutor(max_workers=nthreads) as ex:
+        for j, out in ex.map(eval_model, sorted(rows)):
+            n_pairs += len(by_j[j])
+            for t in range(len(by_j[j])):
+                consume(j, by_j[j], out, t)
+    Configs.runtime("  scoring: native domaindef %d pairs (s): %f"
+                    % (n_pairs, time.time() - t0))
+    return drop
+
+
+def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
+                 consume, nthreads, t0):
+    """The candidate pairs' reporting gate: flank rows (native AVX-512
+    scan), f64 Forward (native, in a side thread), envelope null2
+    (device), then the print-boundary re-evaluations."""
+    from witch_tpu.hmm.profile import configure
+    from witch_tpu.native import _domaindef
+
+    # the gate's flank rows come from the native AVX-512 scan (raises on
+    # an engine built without AVX-512)
+    flank_fn = _domaindef.flank_targets_simd
     items = sorted(by_j.items())
     allargs, flank_rows, codes_by, fwd64_by = {}, {}, {}, {}
 
@@ -284,46 +392,6 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
            n_pend, t_prep - t0, stats["t_device"], stats["t_multi"],
            time.time() - t0))
 
-    # ---- exact-f32 print overlay (native, print-boundary pairs) ----
-    if band32:
-        t0x = time.time()
-
-        def x32_model(item):
-            j, qset = item
-            qlist = sorted(qset)
-            xargs = _native_args(configure(ens.cores[int(indices[j])],
-                                           multihit=True))
-            cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qlist]
-            okx, seqx, _ = x32(*xargs, cl, 1)
-            return j, qlist, okx, seqx
-
-        n32 = ok32 = 0
-        band_cover = 0.0
-        with ThreadPoolExecutor(max_workers=nthreads) as ex:
-            for j, qlist, okx, seqx in ex.map(x32_model,
-                                              sorted(band32.items())):
-                for t, q in enumerate(qlist):
-                    n32 += 1
-                    if okx[t]:
-                        ok32 += 1
-                        b = band_of.get((q, j))
-                        if b:
-                            d = abs(float(seqx[t]) - reported[q, j])
-                            band_cover = max(band_cover, d / b)
-                        reported[q, j] = float(seqx[t])
-        Configs.runtime("  scoring: exact-f32 print overlay %d/%d pairs "
-                        "(band cover %.2f) (s): %f"
-                        % (ok32, n32, band_cover, time.time() - t0x))
-        if band_cover >= 1.0 and mode32 != "full":
-            Configs.warning(
-                "exact-f32 overlay: observed |f32-f64| delta (%.1fx band) "
-                "exceeds the empirical candidate band on this data; rerun "
-                "with WITCH_TPU_EXACT_PRINTS=full for guaranteed "
-                "print-exactness" % band_cover)
-    valid = _candidate_walk(reported, valid, pre, evaluated, gate_ok,
-                            size_arr, owned, TOPT)
-    return np.round(reported, 1), valid, indices, banks
-
 
 def rank_and_weight(scores: np.ndarray, valid: np.ndarray,
                     indices: List[int], sizes: Dict[int, int],
@@ -388,30 +456,48 @@ def read_checkpoint(path: str) -> Dict[str, str]:
 
 
 def main_alignment_process(device=None):
-    """Scenario D end to end. `device` defaults to CUDA (raises without
-    it); pass device="cpu" to run the kernels' plain versions."""
+    """The WITCH pipeline end to end (scenarios A, C and D; witch-ng or
+    old-witch). `device` defaults to CUDA (raises without it); pass
+    device="cpu" to run the kernels' plain versions."""
     device = resolve_device(device)
     t_start = time.time()
-    if getattr(Configs, "full_search_results", False):
+    shard = os.environ.get("WITCH_TPU_SHARD", "")
+    if shard and shard.split("/")[-1] != "1":
         raise NotImplementedError(
-            "--full-search-results is not ported yet (ROADMAP.md, Queue 1: "
-            "full search results with the device flank prefilter)")
-    if Configs.mode != "witch-ng":
-        raise NotImplementedError(
-            "-m %s is not ported yet (ROADMAP.md, Queue 1: old-witch mode)"
-            % Configs.mode)
-    if not (Configs.backbone_path and os.path.exists(Configs.backbone_path)):
-        raise NotImplementedError(
-            "scenario A/B (no -b backbone alignment) is not ported yet "
-            "(ROADMAP.md, Queue 1: scenarios A/C)")
+            "WITCH_TPU_SHARD=%s: query sharding is not ported yet "
+            "(ROADMAP.md, Queue 1: torch.distributed query sharding)"
+            % shard)
     molecule = Configs.molecule
     if molecule is None:
-        molecule = infer_datatype(read_fasta(
-            Configs.backbone_path or Configs.query_path, remove_gaps=True))
+        src = (Configs.backbone_path or Configs.query_path
+               or Configs.input_path)
+        molecule = infer_datatype(read_fasta(src, remove_gaps=True))
         Configs.log("Inferred molecule type: {}".format(molecule))
     alphabet = ALPHABETS[molecule]
     if not Configs.hmmdir:
         Configs.hmmdir = os.path.join(Configs.outdir, "tree_decomp", "root")
+
+    if not (Configs.backbone_path and os.path.exists(Configs.backbone_path)):
+        # scenario A/B: split the input into backbone and queries, align
+        # the backbone, estimate its tree (witch_tpu/pipeline.py:873-894)
+        if not (Configs.input_path and os.path.exists(Configs.input_path)):
+            raise FileNotFoundError(
+                "need -i (unaligned input) or -b (backbone alignment)")
+        from .backbone import BackboneJob
+        s = time.time()
+        job = BackboneJob(Configs.input_path,
+                          os.path.join(Configs.outdir, "backbone"), device,
+                          molecule=molecule,
+                          backbone_size=Configs.backbone_size,
+                          selection_strategy=Configs.selection_strategy,
+                          method=Configs.backbone_method, log=Configs.log)
+        bb_path, q_path, tree_path = job.run()
+        Configs.backbone_path = bb_path
+        if not Configs.query_path:
+            Configs.query_path = q_path
+        if not Configs.backbone_tree_path:
+            Configs.backbone_tree_path = tree_path
+        Configs.runtime("Time for backbone job (s): %f" % (time.time() - s))
     if not (Configs.query_path and os.path.exists(Configs.query_path)):
         raise FileNotFoundError("query sequences missing (-q)")
 
@@ -429,9 +515,19 @@ def main_alignment_process(device=None):
     else:
         if not (Configs.backbone_tree_path
                 and os.path.exists(Configs.backbone_tree_path)):
-            raise NotImplementedError(
-                "scenario C (no -e backbone tree) is not ported yet "
-                "(ROADMAP.md, Queue 1: scenarios A/C)")
+            # scenario C: estimate the backbone tree (device distances,
+            # host NJ + NNI + ML refinement)
+            from .tree_estimate import estimate_tree
+            tree_dir = os.path.join(Configs.outdir, "tree_decomp")
+            os.makedirs(tree_dir, exist_ok=True)
+            tree_path = os.path.join(tree_dir, "backbone.est.tre")
+            s2 = time.time()
+            estimate_tree(backbone, tree_path, device, ml=True,
+                          log=Configs.log)
+            Configs.runtime("Time to estimate backbone tree (s): %f"
+                            % (time.time() - s2))
+            Configs.log("Estimated backbone tree (NJ): %s" % tree_path)
+            Configs.backbone_tree_path = tree_path
         ens = build_ensemble(backbone, Configs.backbone_tree_path,
                              Configs.alignment_size,
                              Configs.alignment_upper_bound, molecule,
