@@ -8,8 +8,12 @@ Phases:
      each timed;
   2. each kernel against its plain PyTorch version on the card at
      main-path shapes, and against the native f64 engine:
-       forward  bench_assets.npz grid (141 models x 500 queries), |dbits|
-                <= 1e-3 vs plain; 2,000 sampled pairs vs native, <= 1e-3
+       forward  bench_assets.npz grid (141 models x 500 queries, Mp 1,312
+                and 2,720), |dbits| <= 1e-3 vs plain; 2,000 sampled pairs
+                vs native, <= 1e-3; (2f) the amino500 main path's own
+                inputs (Mp 416) and (4d) dna1k's (the kernel's ms at
+                those shapes; 100 queries against plain), <= 1e-3; the
+                wide widths in 2e
        flank    (2d) the same grid: fwd, ppB, ppE, mocc within 2e-3 of
                 plain; three-way gate decisions equal except for pairs
                 whose rows sit within 1e-3 of RT1, RT2 or RT3
@@ -21,7 +25,8 @@ Phases:
                 identical columns on every pair with margin >= 2e-3, vs
                 plain and vs native posterior_oa_pair;
        wide     (2e) a bank of a 8,000-state and a 16,384-state model
-                (Mp 16,416, rows in device memory): oa and null2 with the
+                (Mp 8,096 and 16,416: OA and null2 rows in device memory,
+                forward's second layout): all four kernels with the
                 tolerances above, vs plain and native;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
@@ -46,11 +51,17 @@ Phases:
      (make_scale_dataset.py) with --backbone-size 100: every input
      sequence in the output with its residues (or ignored), masked rows
      flush;
-  6. {"kernels": [...]} JSON, the nvidia-smi line, and as the last line
-     {"ok": true, "device": {...}}.
+  6. {"kernels": [...]} JSON (each kernel's launches on the main path,
+     error, ms and plain ms, and its bound: the larger of its operations
+     at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, and its
+     bytes, inputs read once and outputs written once, at 3.35 TB/s), the
+     nvidia-smi line, a check that no module of JAX or witch_tpu was
+     loaded, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises; the script then exits nonzero without the
-result line. Imports nothing of JAX.
+result line. Imports nothing of JAX and nothing of witch_tpu: the host
+stages are the port's own modules, and its native engine is built from
+witch_tpu_torch/native/.
 """
 
 import copy
@@ -76,6 +87,17 @@ WIDE_M = (8000, 16384)              # phase 2e model sizes
 DNA_FULL = 60                       # dna1k queries of the full search
 SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
+# bounds: H100 SXM f32 rate outside the tensor cores and HBM rate (the
+# card's published peaks); f32 operations per DP cell (model
+# state x residue, at the models' own M), read off the plain versions:
+# forward 20 (src 7, M 1, I 3, delete chain 3, E sum 2, max 1, rescale
+# 3), flank 40 (that Forward and a Backward of the same count), null2 45
+# (Forward, Backward, 5 for the posterior state usage), oa 58 (Forward,
+# Backward, 4 for the posteriors, 14 for the OA DP, counted at the f32
+# rate although it runs in f64: a lower bound)
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58}
 
 
 def say(*a):
@@ -96,6 +118,26 @@ def smi_line():
         "nvidia-smi unavailable"
 
 
+def bound_ms(name, cells, nbytes):
+    """(least ms for the work, "operations" or "bytes")."""
+    t_ops = OPS_PER_CELL[name] * cells / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def table_bytes(bt):
+    """Bytes of a bank's tables: emissions [H, K, Mp], transitions
+    [H, 8, Mp], f32."""
+    return 4 * bt.H * (bt.K + 8) * bt.Mp
+
+
+def grid_cells(bt, lens):
+    """DP cells of an all-vs-all grid at the models' own M."""
+    import numpy as np
+    return float(np.asarray(bt.M, np.float64).sum()) * float(
+        np.asarray(lens, np.float64).sum())
+
+
 def cuda_ms(fn, reps):
     import torch
     fn()
@@ -111,7 +153,7 @@ def cuda_ms(fn, reps):
 
 
 def read_fasta_dict(path):
-    from witch_tpu.io.fasta import read_fasta
+    from witch_tpu_torch.io.fasta import read_fasta
     return dict(read_fasta(path))
 
 
@@ -132,9 +174,9 @@ def native_args_from_bank(bank, h):
 def phase_forward(dev, result):
     import numpy as np
     import torch
-    from witch_tpu.hmm.bank import ProfileBank
-    from witch_tpu.hmm.profile import null1_score
-    from witch_tpu.native import _domaindef
+    from witch_tpu_torch.hmm.bank import ProfileBank
+    from witch_tpu_torch.hmm.profile import null1_score
+    from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.device import bank_to_torch
     from witch_tpu_torch.ops.forward import (LN2, forward_nats,
                                              forward_nats_ref, null1_bits)
@@ -152,8 +194,11 @@ def phase_forward(dev, result):
     bts = [bank_to_torch(b, dev) for b in banks]
     err = 0.0
     ms = plain_ms = 0.0
+    cells = nbytes = 0.0
     bits_k = []
     for b, bt in zip(banks, bts):
+        cells += grid_cells(bt, lens)
+        nbytes += table_bytes(bt) + 4 * codes.size + 4 * len(lens) * bt.H
         k = forward_nats(bt, c, ln)
         p = forward_nats_ref(bt, c, ln, elems=1 << 26)
         torch.cuda.synchronize()
@@ -189,8 +234,47 @@ def phase_forward(dev, result):
     check(worst <= 1e-3, "forward kernel vs native on 2000 pairs |dbits| "
           "%.3g <= 1e-3" % worst)
     result["forward"] = dict(max_abs_err=max(err, worst), ms=ms,
-                             plain_ms=plain_ms)
+                             plain_ms=plain_ms, cells=cells, bytes=nbytes)
     return banks, codes, lens
+
+
+def phase_forward_path(calls, dev, result, label, n_plain=None):
+    """The forward kernel on the inputs the main path gave it (recorded
+    forward_bits calls): against the plain version (on the first n_plain
+    queries when given) within 1e-3 bits, and its ms at these shapes."""
+    import numpy as np
+    import torch
+    from witch_tpu_torch.ops.forward import (LN2, forward_nats,
+                                             forward_nats_ref, fwd_layout)
+
+    say("== phase %s: forward kernel on the main path's inputs" % label)
+    err = ms = plain_ms = cells = nbytes = 0.0
+    for bt, codes, lens in calls:
+        cells += grid_cells(bt, lens)
+        nbytes += table_bytes(bt) + 4 * np.asarray(codes).size \
+            + 4 * len(lens) * bt.H
+        c = torch.as_tensor(np.asarray(codes), dtype=torch.int32, device=dev)
+        ln = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=dev)
+        k = forward_nats(bt, c, ln)
+        cs, ls = (c, ln) if n_plain is None else (c[:n_plain], ln[:n_plain])
+        p = forward_nats_ref(bt, cs, ls, elems=1 << 26)
+        torch.cuda.synchronize()
+        e = float(((k[:len(ls)] - p).abs() / LN2).max())
+        err = max(err, e)
+        t = cuda_ms(lambda: forward_nats(bt, c, ln), 3)
+        tp = cuda_ms(lambda: forward_nats_ref(bt, cs, ls, elems=1 << 26), 1)
+        ms += t
+        plain_ms += tp
+        say("  bank H=%d Mp=%d (layout, G, npl, Mpad %s), %d queries: "
+            "kernel %.2f ms; %d queries vs plain |dbits| %.3g (plain %.2f "
+            "ms)" % (bt.H, bt.Mp, fwd_layout(bt.Mp), len(lens), t, len(ls),
+                     e, tp))
+    check(calls and err <= 1e-3, "forward kernel on the %s path's inputs "
+          "vs plain |dbits| %.3g <= 1e-3" % (label, err))
+    b_ms, b_by = bound_ms("forward", cells, nbytes)
+    say("  %.4g DP cells: bound %.3f ms (%s)" % (cells, b_ms, b_by))
+    result["forward_" + label] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms)
 
 
 class Recorder:
@@ -208,12 +292,19 @@ class Recorder:
         import witch_tpu_torch.tree_estimate as te
         self.gate, self.null2, self.oa = [], [], []
         self.full, self.counts, self.dist = [], [], []
-        self.grid = []
+        self.grid, self.fwd = [], []
         orig_gate, orig_null2, orig_oa = (pl.evaluate_gate_device,
                                           gd.null2_envelopes, al.oa_columns)
         orig_full, orig_counts, orig_dist = (
             pl._full_search_gate, te.identity_counts, te.pairwise_distances)
         orig_grid = fd.prefilter_grid
+        orig_fwd = pl.forward_bits
+
+        def fwd(bt, codes, lens):
+            self.fwd.append((bt, np.array(codes), np.array(lens)))
+            return orig_fwd(bt, codes, lens)
+
+        pl.forward_bits = fwd
 
         def full(ens, indices, *a, **kw):
             drop = orig_full(ens, indices, *a, **kw)
@@ -258,7 +349,7 @@ class Recorder:
 
     def clear(self):
         for x in (self.gate, self.null2, self.oa, self.full, self.counts,
-                  self.dist, self.grid):
+                  self.dist, self.grid, self.fwd):
             x.clear()
 
 
@@ -292,7 +383,7 @@ def run_amino(outdir, extra, label, oracle=True):
     """amino500 golden through witch_runner with `extra` flags; checks
     600/600 masked rows against the oracle when `oracle`, else reports
     the count. Returns the launches of the run."""
-    from witch_tpu.io.fasta import read_fasta
+    from witch_tpu_torch.io.fasta import read_fasta
     pre, n_rows = AMINO
     out, dt, launches = run_cli([
         "-b", os.path.join(GOLD, pre + ".backbone.fasta"),
@@ -329,18 +420,24 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
                 "amino500 gate envelopes", key="null2"):
     import numpy as np
     import torch
-    from witch_tpu.native import _domaindef
-    from witch_tpu_torch.ops.null2 import _pack, null2_nats, null2_nats_ref
+    from witch_tpu_torch.native import _domaindef
+    from witch_tpu_torch.ops.null2 import (NCODE, _pack, null2_nats,
+                                           null2_nats_ref)
 
     say("== phase " + label)
     worst = 0.0
     abs_err = 0.0
     ms = plain_ms = 0.0
+    cells = nbytes = 0.0
     n_env = 0
     for bt, entries in rec.null2:
         if not entries:
             continue
         n_env += len(entries)
+        n_res = sum(len(sub) for _, sub, _ in entries)
+        cells += float(sum(len(sub) * int(bt.M[row])
+                           for row, sub, _ in entries))
+        nbytes += table_bytes(bt) + 4 * n_res + 4 * (3 + NCODE) * len(entries)
         pk = _pack(entries, dev)
         sk, dk = null2_nats(bt, *pk)
         sp, dp = null2_nats_ref(bt, *pk, chunk=1024)
@@ -379,7 +476,8 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
     check(npairs > 0 and nbad == 0 and dsb < 2e-3 and dse < 2e-3
           and dss < 5e-3, "gate assembly vs native evaluate_targets_rows")
     result[key] = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
-                       plain_ms=plain_ms, envelopes=n_env)
+                       plain_ms=plain_ms, envelopes=n_env, cells=cells,
+                       bytes=nbytes)
 
 
 def oa_compare(bt, pairs_rows, Ldmax, label):
@@ -413,12 +511,13 @@ def oa_compare(bt, pairs_rows, Ldmax, label):
 
 def phase_oa(rec, banks_bench, codes, lens, dev, result):
     import numpy as np
-    from witch_tpu.native import _domaindef
+    from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.device import bank_to_torch
 
     say("== phase 2c: oa kernel vs plain and native")
     bad_p = bad_n = 0
     dmax = ms = plain_ms = 0.0
+    cells = nbytes = 0.0
     n = 0
     for banks_t, bank_row, pairs, Ldmax in rec.oa:
         by_bank = {}
@@ -439,6 +538,9 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
             ms += t_k
             plain_ms += t_p
             n += len(lst)
+            bt = banks_t[bi]
+            cells += float(sum(len(c) * int(bt.M[r]) for _, r, c in lst))
+            nbytes += table_bytes(bt) + sum(8 * len(c) + 8 for *_, c in lst)
     check(n > 0 and bad_p == 0 and bad_n == 0,
           "oa amino500: %d pairs, above-guard mismatches vs plain %d, "
           "vs native %d" % (n, bad_p, bad_n))
@@ -472,7 +574,7 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
           "oa bench_assets: %d pairs, above-guard mismatches vs plain %d, "
           "vs native %d" % (nb, bad_b, bad_bn))
     result["oa"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
-                        pairs=n)
+                        pairs=n, cells=cells, bytes=nbytes)
 
 
 
@@ -497,7 +599,7 @@ def phase_dna(tmp, rec):
         "-d", outdir, "-o", "aligned.fasta"])
     lines = print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
-    from witch_tpu.io.fasta import read_fasta
+    from witch_tpu_torch.io.fasta import read_fasta
     qnames = [n for n, _ in read_fasta(os.path.join(data,
                                                     "queries.fasta"))]
     masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
@@ -602,17 +704,21 @@ def phase_flank(banks_bench, codes, lens, dev, result):
     from witch_tpu_torch.device import bank_to_torch
     from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
 
-    from witch_tpu.native import _domaindef, set_trace_alphabet
+    from witch_tpu_torch.native import _domaindef, set_trace_alphabet
 
     say("== phase 2d: flank kernel vs plain, bench_assets grid")
     c = torch.from_numpy(codes).to(dev)
     ln = torch.from_numpy(lens).to(dev)
     err_fwd = err_rows = ms = plain_ms = 0.0
     n_pairs = n_near = n_diff = n_diff_far = n_kept = 0
-    t_host = 0.0
+    t_host = cells = nbytes = 0.0
     dropped = []                 # (bank, row, query) the prefilter drops
     for b in banks_bench:
         bt = bank_to_torch(b, dev)
+        QH = len(lens) * bt.H
+        cells += grid_cells(bt, lens)
+        nbytes += table_bytes(bt) + 4 * codes.size + 4 * QH * (
+            1 + 3 * (codes.shape[1] + 1))
         k = flank_rows(bt, c, ln)
         p = flank_rows_ref(bt, c, ln, elems=1 << 26)
         torch.cuda.synchronize()
@@ -666,16 +772,17 @@ def phase_flank(banks_bench, codes, lens, dev, result):
           % (len(dropped), n_pairs, len(pick), reported))
     result["flank"] = dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
                            plain_ms=plain_ms, near_threshold=n_near,
-                           decisions_differ=n_diff)
+                           decisions_differ=n_diff, cells=cells,
+                           bytes=nbytes)
 
 
 def _wide_problem(seed=17):
     """A bank of one 8,000-state and one 16,384-state DNA model (WIDE_M),
     and query fragments of each model's consensus."""
     import numpy as np
-    from witch_tpu.core.alphabet import DNA
-    from witch_tpu.hmm.bank import build_banks
-    from witch_tpu.hmm.build import build_hmm, quantize_like_text
+    from witch_tpu_torch.core.alphabet import DNA
+    from witch_tpu_torch.hmm.bank import build_banks
+    from witch_tpu_torch.hmm.build import build_hmm, quantize_like_text
     rng = np.random.default_rng(seed)
     cores, queries = [], []
     for M in WIDE_M:
@@ -698,8 +805,8 @@ def _wide_problem(seed=17):
 
 def phase_wide(rec, dev, result):
     import numpy as np
-    from witch_tpu.hmm.profile import configure
-    from witch_tpu.native import _domaindef, set_trace_alphabet
+    from witch_tpu_torch.hmm.profile import configure
+    from witch_tpu_torch.native import _domaindef, set_trace_alphabet
     import witch_tpu_torch.pipeline as pl
     from witch_tpu_torch.device import bank_to_torch
 
@@ -782,7 +889,7 @@ def phase_wide(rec, dev, result):
 
 def _query_rows_ok(outdir, qpath):
     """(n placed with their residues, n ignored, names neither)."""
-    from witch_tpu.io.fasta import read_fasta
+    from witch_tpu_torch.io.fasta import read_fasta
     rows = read_fasta_dict(os.path.join(outdir, "aligned.fasta"))
     ign_p = os.path.join(outdir, "ignored_queries.fasta")
     ignored = set(read_fasta_dict(ign_p)) if os.path.exists(ign_p) else set()
@@ -806,8 +913,8 @@ def full_search_replay(rec, dev, label, need_drops):
     f64 rows. Returns the kernel and plain times on the path's grid."""
     import numpy as np
     import torch
-    from witch_tpu.hmm.profile import configure
-    from witch_tpu.native import _domaindef
+    from witch_tpu_torch.hmm.profile import configure
+    from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
     from witch_tpu_torch.pipeline import _native_args
 
@@ -943,7 +1050,7 @@ def phase_full_search(tmp, rec, dev, result):
 
 
 def phase_full_search_dna(tmp, rec, dev, result):
-    from witch_tpu.io.fasta import read_fasta, write_fasta
+    from witch_tpu_torch.io.fasta import read_fasta, write_fasta
 
     say("== phase 4c: dna1k backbone, %d queries, --full-search-results 1"
         % DNA_FULL)
@@ -1037,7 +1144,7 @@ def phase_scenario_c(tmp, rec):
 
 
 def phase_scenario_a(tmp):
-    from witch_tpu.io.fasta import read_fasta, write_fasta
+    from witch_tpu_torch.io.fasta import read_fasta, write_fasta
 
     say("== phase 5: scenario A, -i (300 full-length + 100 fragments), "
         "--backbone-size 100")
@@ -1079,6 +1186,7 @@ def main():
         say("chip_smoke: no CUDA device (torch.cuda.is_available() is "
             "False); nothing run")
         return 2
+    t_start = time.time()
     smi = smi_line()
     say("card:", smi)
     dev = torch.device("cuda")
@@ -1087,9 +1195,9 @@ def main():
     _build.lib()
     say("nvcc build of csrc/*.cu: %.2f s" % (time.time() - t0))
     t0 = time.time()
-    import witch_tpu.native  # noqa: F401 - auto-builds the host engine
-    from witch_tpu.native import _domaindef  # noqa: F401
-    say("native engine import/build: %.2f s" % (time.time() - t0))
+    from witch_tpu_torch.native import _domaindef  # noqa: F401 - builds it
+    say("native engine build (witch_tpu_torch/native): %.2f s"
+        % (time.time() - t0))
 
     import witch_tpu_torch.aligner as al
     orig_init = al.DeviceAligner.__init__
@@ -1109,6 +1217,7 @@ def main():
         timed(phase_flank, banks, codes, lens, dev, result)
         rec = Recorder()
         paths["amino500"] = timed(phase_amino, tmp)
+        timed(phase_forward_path, list(rec.fwd), dev, result, "2f_amino500")
         timed(phase_null2, rec, dev, result)
         timed(phase_oa, rec, banks, codes, lens, dev, result)
         timed(phase_wide, rec, dev, result)
@@ -1116,6 +1225,8 @@ def main():
                                      result)
         paths["old_witch"] = timed(phase_old_witch, tmp, rec)
         paths["dna1k"] = timed(phase_dna, tmp, rec)
+        timed(phase_forward_path, list(rec.fwd), dev, result, "4d_dna1k",
+              100)
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
         paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
@@ -1134,21 +1245,32 @@ def main():
             ("flank", "witch_tpu_torch/csrc/flank.cu",
              "witch_tpu/hmm/flank_device.py:52", "full_search")):
         r = result[name]
+        b_ms, b_by = bound_ms(name, r["cells"], r["bytes"])
         k = dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=paths[main_path][name],
                  launches_by_path={p: paths[p][name] for p in paths},
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"])
-        for tag in ("wide", "full_search", "full_search_dna"):
+                 plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, cells=r["cells"])
+        for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
+                    "4d_dna1k"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],
                           "plain_ms_" + tag: r2["plain_ms"],
                           "max_abs_err_" + tag: r2["max_abs_err"]})
+                if "bound_ms" in r2:
+                    k["bound_ms_" + tag] = r2["bound_ms"]
                 k["max_abs_err"] = max(k["max_abs_err"], r2["max_abs_err"])
         kernels.append(k)
+    say("chip_smoke: all phases passed in %.1f s" % (time.time() - t_start))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "witch_tpu") and sys.modules[m] is not None)
+    if foreign:
+        raise AssertionError("modules of JAX or witch_tpu were loaded: %s"
+                             % foreign[:10])
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

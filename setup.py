@@ -14,9 +14,12 @@ setup(
     description="TPU-native WITCH multiple sequence alignment",
     packages=find_packages(include=["witch_tpu", "witch_tpu.*",
                                     "witch_tpu_torch", "witch_tpu_torch.*"]),
-    # the port's CUDA sources ship as data: they are compiled by nvcc at
-    # first use on a CUDA host (witch_tpu_torch/_build.py), never here
-    package_data={"witch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the port's CUDA and native C++ sources ship as data: they are
+    # compiled at first use (witch_tpu_torch/_build.py by nvcc on a CUDA
+    # host, witch_tpu_torch/native/__init__.py by the C++ compiler),
+    # never here
+    package_data={"witch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "native/*.cpp", "native/*.h"]},
     ext_modules=[
         Extension(
             "witch_tpu.native._oa",

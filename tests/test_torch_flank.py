@@ -215,6 +215,8 @@ def test_full_search_matches_jax(tiny_problem, tmp_path):
     rows equal; the port's run went through the flank prefilter."""
     from witch_tpu.pipeline import main_alignment_process as jax_main
     from witch_tpu_torch import _build
+    from witch_tpu_torch.cli import init_parser as port_parser
+    from witch_tpu_torch.config import build_configs as port_configs
     from witch_tpu_torch.pipeline import main_alignment_process
     bb, q = tiny_problem
     args = ["-q", str(q), "-b", str(bb), "-o", "aligned.fasta",
@@ -222,7 +224,7 @@ def test_full_search_matches_jax(tiny_problem, tmp_path):
     out_j, out_p = tmp_path / "jax", tmp_path / "port"
     build_configs(init_parser(), args + ["-d", str(out_j)])
     jax_main()
-    build_configs(init_parser(), args + ["-d", str(out_p)])
+    port_configs(port_parser(), args + ["-d", str(out_p)])
     _build.reset_launches()
     main_alignment_process(device="cpu")
     assert not any(_build.LAUNCHES.values())      # plain versions only

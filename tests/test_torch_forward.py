@@ -11,8 +11,9 @@ from witch_tpu.hmm.bank import build_banks
 from witch_tpu.hmm.build import build_hmm, quantize_like_text
 from witch_tpu.hmm.profile import configure, null1_score
 from witch_tpu_torch.device import bank_to_torch
-from witch_tpu_torch.ops.forward import (forward_bits, forward_nats,
-                                         forward_nats_ref)
+from witch_tpu_torch.ops.forward import (LN2, forward_bits, forward_nats,
+                                         forward_nats_ref, fwd_layout,
+                                         length_order, slot_index)
 
 try:
     from witch_tpu.native import _domaindef
@@ -32,6 +33,28 @@ def synth_core(M, n, seed):
         s[mut] = r.integers(0, 4, mut.sum())
         rows.append(DNA.encode("".join(LETTERS[s])))
     return quantize_like_text(build_hmm(np.array(rows), DNA, "dna"))
+
+
+def model_and_fragments(M, seed, lens):
+    """One synthetic DNA model of M states and query fragments of its
+    consensus with the given lengths (5 % point mutations)."""
+    r = np.random.default_rng(seed)
+    base = r.integers(0, 4, M)
+    rows = []
+    for _ in range(6):
+        s = base.copy()
+        mut = r.random(M) < 0.1
+        s[mut] = r.integers(0, 4, mut.sum())
+        rows.append(DNA.encode("".join(LETTERS[s])))
+    core = quantize_like_text(build_hmm(np.array(rows), DNA, "dna"))
+    codes = np.zeros((len(lens), max(lens)), np.int32)
+    for i, L in enumerate(lens):
+        a = int(r.integers(0, M - L + 1))
+        q = base[a:a + L].copy()
+        mut = r.random(L) < 0.05
+        q[mut] = r.integers(0, 4, mut.sum())
+        codes[i, :L] = q
+    return core, codes, np.asarray(lens, np.int32)
 
 
 def grid(seed, n_q=9):
@@ -117,6 +140,60 @@ def test_wrapper_on_cpu_is_the_plain_version():
     c, l = torch.from_numpy(codes), torch.from_numpy(lens)
     torch.testing.assert_close(forward_nats(bt, c, l),
                                forward_nats_ref(bt, c, l))
+
+
+def test_length_order_and_scatter_back():
+    """Queries of lengths 1..Lmax, shuffled, go through the wrapper in
+    length order and come back in their original order, equal to the
+    plain version on the caller's order."""
+    _, banks, _, _, _ = grid(12, n_q=1)
+    rng = np.random.default_rng(12)
+    Lmax = 40
+    lens = rng.permutation(np.arange(1, Lmax + 1)).astype(np.int32)
+    codes = rng.integers(0, 4, (Lmax, Lmax)).astype(np.int32)
+    order = length_order(torch.from_numpy(lens)).numpy()
+    np.testing.assert_array_equal(lens[order], np.arange(Lmax, 0, -1))
+    c, l = torch.from_numpy(codes), torch.from_numpy(lens)
+    for b in banks:
+        bt = bank_to_torch(b, "cpu")
+        torch.testing.assert_close(forward_nats(bt, c, l),
+                                   forward_nats_ref(bt, c, l),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("Mp,layout", [(416, 0), (1312, 0), (1568, 0),
+                                       (2720, 0), (8224, 1), (16416, 1)])
+def test_kernel_layout_covers_each_state_once(Mp, layout):
+    got, G, npl, Mpad = fwd_layout(Mp)
+    assert got == layout and Mpad == 32 * G * npl >= Mp
+    k = slot_index(Mp, G, npl)
+    np.testing.assert_array_equal(np.sort(k[k >= 0]), np.arange(Mp))
+    # a lane's states are contiguous: slot (j*G + g)*32 + lane
+    s = np.flatnonzero(k == Mp - 1)[0]
+    lane, g, j = s % 32, (s // 32) % G, s // (32 * G)
+    assert (g * 32 + lane) * npl + j == Mp - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Mp", [(300, 416), (1200, 1312), (2600, 2720),
+                                  (16384, 16416)])
+def test_kernel_matches_plain_at_main_path_widths(M, Mp):
+    """Each width's layout against the plain version within 1e-3 bits,
+    on a tile that mixes L = 1 with the longest query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    lens = [1, 280, 1, 2, 17, 64, 1, 129, 255, 3, 1, 279]
+    core, codes, lens = model_and_fragments(M, M, lens)
+    bank = build_banks([core], uniform=True, n_buckets=2)[0]
+    bc = bank_to_torch(bank, "cuda")
+    assert bc.Mp == Mp
+    c = torch.from_numpy(codes).cuda()
+    l = torch.from_numpy(lens).cuda()
+    got = forward_nats(bc, c, l)
+    ref = forward_nats_ref(bc, c, l)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float(((got - ref).abs() / LN2).max()) <= 1e-3
 
 
 @pytest.mark.cuda

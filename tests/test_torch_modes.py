@@ -9,10 +9,10 @@ import sys
 import numpy as np
 import pytest
 
-from witch_tpu.cli import init_parser
-from witch_tpu.config import Configs, build_configs
 from witch_tpu.core.alignment import PackedAlignment
 from witch_tpu.io.fasta import read_fasta, write_fasta
+from witch_tpu_torch.cli import init_parser
+from witch_tpu_torch.config import Configs, build_configs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(HERE, "golden")
@@ -22,12 +22,15 @@ AMINO = ["-q", os.path.join(GOLD, "ref_amino.queries.fasta"),
 
 def _run_both(args, tmp_path):
     """Run the JAX pipeline and the port (device="cpu") on the same
-    arguments; returns their output directories."""
+    arguments, each configured through its own package; returns their
+    output directories."""
+    from witch_tpu.cli import init_parser as jax_parser
+    from witch_tpu.config import build_configs as jax_configs
     from witch_tpu.pipeline import main_alignment_process as jax_main
     from witch_tpu_torch import _build
     from witch_tpu_torch.pipeline import main_alignment_process
     out_j, out_p = tmp_path / "jax", tmp_path / "port"
-    build_configs(init_parser(), args + ["-d", str(out_j)])
+    jax_configs(jax_parser(), args + ["-d", str(out_j)])
     jax_main()
     build_configs(init_parser(), args + ["-d", str(out_p)])
     _build.reset_launches()
@@ -124,10 +127,10 @@ def test_zero_transition_models_align_natively(tmp_path):
     the JAX package (witch_tpu/aligner.py:196-201). A bank with a planted
     zero is refused (the kernel's DP does not take it) instead of being
     aligned wrongly."""
-    from witch_tpu.core.alphabet import DNA
-    from witch_tpu.ensemble import build_ensemble
-    from witch_tpu.hmm.bank import build_banks
     from witch_tpu_torch.aligner import DeviceAligner
+    from witch_tpu_torch.core.alphabet import DNA
+    from witch_tpu_torch.ensemble import build_ensemble
+    from witch_tpu_torch.hmm.bank import build_banks
     from witch_tpu_torch.ops.oa import bank_strictly_positive
     rng = np.random.default_rng(8)
     letters = np.array(list("ACGT"))
@@ -138,8 +141,9 @@ def test_zero_transition_models_align_natively(tmp_path):
         mut = rng.random(60) < 0.1
         s[mut] = letters[rng.integers(0, 4, mut.sum())]
         rows.append("".join(s))
-    aln = PackedAlignment(["s%d" % i for i in range(12)],
-                          np.array([DNA.encode(r) for r in rows]), DNA)
+    from witch_tpu_torch.core.alignment import PackedAlignment as PortAln
+    aln = PortAln(["s%d" % i for i in range(12)],
+                  np.array([DNA.encode(r) for r in rows]), DNA)
     nwk = "(" + ",".join("s%d:0.1" % i for i in range(12)) + ");"
     tre = tmp_path / "t.tre"
     tre.write_text(nwk)
@@ -159,10 +163,9 @@ def test_zero_transition_models_align_natively(tmp_path):
 @pytest.mark.parametrize("backend", ["iterhmm", "magus"])
 def test_backbone_backends_need_the_native_engine(backend, tmp_path,
                                                   monkeypatch):
-    """The iterhmm and magus backbone backends align on the native
+    """The iterhmm and magus backbone backends align on the port's native
     engine only: without it the backbone job raises rather than taking
     the JAX package's device or numpy fallbacks."""
-    import witch_tpu.native as native
     from witch_tpu_torch.backbone import BackboneJob
     rng = np.random.default_rng(6)
     letters = np.array(list("ACGT"))
@@ -173,8 +176,10 @@ def test_backbone_backends_need_the_native_engine(backend, tmp_path,
                                               base)))
                  for i in range(10)], str(inp))
     monkeypatch.setenv("WITCH_TPU_BACKBONE", backend)
-    monkeypatch.delattr(native, "_domaindef", raising=False)
-    monkeypatch.setitem(sys.modules, "witch_tpu.native._domaindef", None)
+    # the engine's extensions live in sys.modules only (native/__init__.py
+    # loads them at first access): None there makes the engine missing
+    monkeypatch.setitem(sys.modules, "witch_tpu_torch.native._domaindef",
+                        None)
     job = BackboneJob(str(inp), str(tmp_path / "bb"), "cpu",
                       backbone_size=6)
     with pytest.raises(ImportError):

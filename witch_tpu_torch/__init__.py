@@ -1,10 +1,12 @@
 """witch_tpu_torch: the PyTorch/CUDA port of witch_tpu (WITCH,
 weighted consensus HMM alignment) for one NVIDIA H100.
 
-The device stages of scenario D run in hand-written CUDA kernels
-(csrc/); the host stages (decomposition, hmmbuild, native domain
-definition, weighting, merge) are imported from witch_tpu's JAX-free
-modules."""
+The device stages run in hand-written CUDA kernels (csrc/). The host
+stages (decomposition, hmmbuild, native domain definition, weighting,
+merge, tree search, backbone alignment) are the port's own copies of
+witch_tpu's host modules, under the same relative names, with the
+native C++ engine built from native/ at first use. The port imports
+nothing of witch_tpu and nothing of JAX."""
 
 from .device import resolve_device
 
@@ -13,16 +15,15 @@ __all__ = ["resolve_device", "witch_runner"]
 
 
 def witch_runner(argv=None):
-    """CLI entry: the reference's witch.py flags (witch_tpu.cli). Runs on
-    CUDA and raises without it."""
+    """CLI entry: the reference's witch.py flags (cli.py). Runs on CUDA
+    and raises without it."""
     import sys
     import time
 
     device = resolve_device()
     cmdline_args = sys.argv[1:] if argv is None else argv
-    from witch_tpu.cli import init_parser
-    from witch_tpu.config import Configs, build_configs
-
+    from .cli import init_parser
+    from .config import Configs, build_configs
     from .pipeline import main_alignment_process
 
     build_configs(init_parser(), cmdline_args)

@@ -108,7 +108,7 @@ def lib():
             path = build()
             so = ctypes.CDLL(path)
             P, I = ctypes.c_void_p, ctypes.c_int
-            so.witch_forward_nats.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+            so.witch_forward_nats.argtypes = [P] * 6 + [I] * 8 + [P]
             so.witch_null2.argtypes = [P] * 12 + [I, I, I, I, P]
             so.witch_oa.argtypes = [P] * 16 + [I, I, I, I, P]
             so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]

@@ -7,25 +7,60 @@ align_all_queries). Pairs whose decision margin falls below the guard
 (2e-3, the JAX path's calibration) or whose traceback fails are
 re-aligned on the native f64 engine (posterior_oa_pair); that guard is
 part of the output contract (hmmalign-exact columns), and its count is
-logged.
+logged. select_pairs and HostAligner are copied from witch_tpu/aligner.py
+(that module's device aligners reach JAX).
 """
 
 from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from witch_tpu.aligner import HostAligner, select_pairs
-from witch_tpu.config import Configs
-from witch_tpu.ops.merge_dp import align_query_row
-
+from .config import Configs
 from .device import bank_to_torch
+from .ensemble import Ensemble
+from .hmm.profile import Profile, configure
+from .ops.merge_dp import align_query_row
 from .ops.oa import bank_strictly_positive, oa_columns
+from .weighting import adaptive_top_hmms
 
 OA_GUARD = 2e-3
+
+
+def select_pairs(qnames: Sequence[str], weights: Dict[str, tuple],
+                 use_weight: bool = True):
+    """Adaptive top-HMM selection per query -> list of (qname, [(idx, w)]).
+    Queries without weights are returned in `ignored`."""
+    selections = {}
+    ignored = []
+    for qname in qnames:
+        w = weights.get(qname, tuple())
+        if not w:
+            ignored.append(qname)
+            continue
+        selections[qname] = adaptive_top_hmms(w, use_weight=use_weight)
+    return selections, ignored
+
+
+class HostAligner:
+    """float64 numpy per-pair alignment (reference-exact)."""
+
+    def __init__(self, ens: Ensemble):
+        self.ens = ens
+        self._profiles: Dict[int, Profile] = {}
+
+    def profile(self, idx: int) -> Profile:
+        if idx not in self._profiles:
+            self._profiles[idx] = configure(self.ens.cores[idx],
+                                            multihit=False)
+        return self._profiles[idx]
+
+    def aligned_columns(self, idx: int, codes: np.ndarray) -> np.ndarray:
+        from .hmm.align_ref import aligned_columns
+        return aligned_columns(self.profile(idx), codes)
 
 
 class DeviceAligner:
@@ -36,7 +71,7 @@ class DeviceAligner:
     def __init__(self, ens, device, banks=None):
         self.host = HostAligner(ens)
         if banks is None:
-            from witch_tpu.hmm.bank import build_banks
+            from .hmm.bank import build_banks
             idx = ens.indices
             banks = build_banks([ens.cores[i] for i in idx], indices=idx,
                                 uniform=True, n_buckets=2)
@@ -51,8 +86,8 @@ class DeviceAligner:
 
     def native_columns(self, pairs) -> List[np.ndarray]:
         """f64 posterior + OA on the native engine (threaded)."""
-        from witch_tpu.hmm.align_ref import _deltas_u8
-        from witch_tpu.native import _domaindef
+        from .hmm.align_ref import _deltas_u8
+        from .native import _domaindef
         from .pipeline import _native_args
         args: Dict[int, tuple] = {}
         for idx, _ in pairs:
@@ -125,8 +160,8 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
                       done: Optional[Dict[str, str]] = None,
                       checkpoint_cb=None, mode: str = "witch-ng"):
     """Returns (rows [(name, row)], ignored names). mode="old-witch"
-    merges with the GCM/MCL path (witch_tpu.ops.gcm) instead of the
-    witch-ng banded DP."""
+    merges with the GCM/MCL path (ops/gcm.py) instead of the witch-ng
+    banded DP."""
     done = done or {}
     selections, ignored = select_pairs(qnames, weights, use_weight)
     rows: List[Tuple[str, str]] = []
@@ -189,8 +224,8 @@ def _gcm_rows(todo, per_hmm, qseqs, name_to_i, backbone_length):
     batch; --timeout bounds each query's GCM merge, re-running it in
     witch-ng mode as the reference re-queues timed-out GCM tasks
     (witch_msa/gcmm/results_handler.py:167-180)."""
-    from witch_tpu.ops.gcm import gcm_align_query_row
-    from witch_tpu.ops.merge_dp import sparse_edges
+    from .ops.gcm import gcm_align_query_row
+    from .ops.merge_dp import sparse_edges
 
     s_size = max(1, int(getattr(Configs, "subset_size", 1)))
     cluster = getattr(Configs, "graphclustermethod", "mcl")

@@ -1,12 +1,13 @@
-// Shared device helpers for the profile-HMM kernels (forward.cu,
-// null2.cu, oa.cu).
+// Shared device helpers for the profile-HMM kernels null2.cu, oa.cu and
+// flank.cu (forward.cu has its own row update and takes only the
+// constants and set_smem from here).
 //
-// Every kernel runs one CTA of NT threads per DP instance (a query-model
-// pair or an envelope). The model-state axis k in [0, Mp) is cut into
-// NT contiguous chunks, one per thread: thread t owns [k0, k1). A DP row
-// lives in shared memory and is updated in place; each thread reads the
-// one value left of its chunk (or right of it, for Backward) into a
-// register before the barrier that precedes the update.
+// Each of those kernels runs one CTA of NT threads per DP instance (a
+// query-model pair or an envelope). The model-state axis k in [0, Mp) is
+// cut into NT contiguous chunks, one per thread: thread t owns [k0, k1).
+// A DP row lives in shared memory and is updated in place; each thread
+// reads the one value left of its chunk (or right of it, for Backward)
+// into a register before the barrier that precedes the update.
 //
 // The delete chains are first-order linear recurrences,
 //   forward   D[k] = a[k] * D[k-1] + b[k]

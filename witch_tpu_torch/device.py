@@ -1,8 +1,8 @@
-"""Device selection and the bank carried from the JAX package to torch.
+"""Device selection and the scoring bank on the device.
 
-The state that crosses from witch_tpu is the ProfileBank (numpy, built
-by witch_tpu.hmm.bank.build_banks). bank_to_torch lays it out for the
-port's kernels and plain versions: emission odds code-major [H, K, Mp]
+The host builds each bank as a ProfileBank (numpy, hmm/bank.py:
+build_banks). bank_to_torch lays it out for the port's kernels and
+plain versions: emission odds code-major [H, K, Mp]
 (a gather by residue code reads contiguous states), transitions
 [H, 8, Mp] in the row order mm mi md im ii dm dd bm, and the model
 sizes. Counterpart of witch_tpu/ops/pallas_forward.py:device_bank_arrays
@@ -44,6 +44,9 @@ class BankTensors:
     trans: torch.Tensor     # [H, 8, Mp] f32
     M: np.ndarray           # [H] i32 model sizes (host)
     pad_code: int           # first all-zero emission code (gap)
+    # kernel-specific layouts of the tables, built at first use
+    cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
 
     @property
     def H(self) -> int:

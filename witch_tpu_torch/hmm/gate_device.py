@@ -12,7 +12,10 @@ same five stages with the envelope null2 of ops/null2.py:
   5. the envelope-qualification guard: pairs whose envelope score margin
      is within GUARD_NATS of flipping are re-evaluated on the native
      engine; `stats["reeval"]` re-evaluates the print-boundary pairs the
-     caller finds (witch_tpu.hmm.gate_device.near_print_boundary).
+     caller finds (near_print_boundary).
+
+GUARD_BITS, GUARD_NATS, OMEGA_LOG, _flogsum0 and near_print_boundary are
+copied from witch_tpu/hmm/gate_device.py.
 """
 
 from __future__ import annotations
@@ -24,9 +27,25 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from witch_tpu.hmm.gate_device import GUARD_NATS, OMEGA_LOG, _flogsum0
-
 from ..ops.null2 import NCODE, null2_envelopes
+
+GUARD_BITS = 5e-3          # distance to a 0.05 rounding boundary
+GUARD_NATS = 5e-3          # envelope-qualification / sum-score guard
+OMEGA_LOG = float(np.log(1.0 / 256.0))
+
+
+def _flogsum0(lw: float) -> float:
+    """FLogsum(0, lw) in f64 (the C++ engine's seqbias combiner)."""
+    if lw > 0.0:
+        return lw + np.log1p(np.exp(-lw))
+    return float(np.log1p(np.exp(lw)))
+
+
+def near_print_boundary(bits: float, eps: float = GUARD_BITS) -> bool:
+    """True when `bits` is within eps of a 0.1-bit rounding boundary
+    (np.round-to-even on the first decimal)."""
+    d = bits * 10.0
+    return abs(d - np.floor(d) - 0.5) < eps * 10.0
 
 
 def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
@@ -44,7 +63,7 @@ def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
     by_j: {column j: [query indices]} candidate batches.
     flank_rows: {j: (mocc, ppB, ppE)} f32 rows from the native flank scan.
     """
-    from witch_tpu.native import _domaindef
+    from ..native import _domaindef
 
     items = sorted(by_j.items())
     t0 = time.time()

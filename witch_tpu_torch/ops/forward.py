@@ -6,6 +6,13 @@ pallas_forward_bits) and the dispatch of witch_tpu/hmm/forward.py:
 score_bank. Every query runs exactly its own length, so no padding rows
 enter the recurrence and the bits need no ploop correction
 (pallas_forward.py:_bits_from_nats with Lpad = L).
+
+The kernel runs one warp, or G warps for wide models, per (model, query)
+pair; fwd_layout picks G, the states per lane and where the row and the
+transitions live from the bank width, and slot_tables lays the bank out
+for it. The queries are sorted by length (length_order) and each score
+is written back at its original [q, h]; on the CPU the plain version
+runs on the same sorted order and is scattered back the same way.
 """
 
 from __future__ import annotations
@@ -20,6 +27,64 @@ from ..device import BankTensors
 from ._plain import SCALE_FLOOR, fwd_chain, fwd_chain_coeffs, shift_r
 
 LN2 = math.log(2.0)
+FWD_NPL = (8, 16, 24, 32, 40, 48)   # register layouts: states per lane
+FWD_WARPS = 8                        # warps per CTA (csrc/forward.cu)
+FWD_XS = 8                           # floats per warp of the row exchange
+
+
+def fwd_layout(Mp: int):
+    """(layout, G warps per pair, npl states per lane, Mpad) for a bank
+    of width Mp. Layout 0: the row in registers, G warps of at most 48
+    states per lane, the transitions in shared memory, whenever they fit
+    there. Layout 1 (wider): one pair of 8 warps per CTA, its row in
+    shared memory, the transitions in device memory."""
+    G = -(-Mp // (32 * FWD_NPL[-1]))
+    if G <= FWD_WARPS:
+        need = -(-Mp // (32 * G))
+        npl = min(n for n in FWD_NPL if n >= need)
+        Mpad = 32 * G * npl
+        wp = max(1, FWD_WARPS // G)
+        if 4 * (8 * Mpad + 2 * wp * G * FWD_XS + wp * G * 4) \
+                <= _build.SMEM_ROWS_MAX:
+            return 0, G, npl, Mpad
+    G = FWD_WARPS
+    npl = -(-Mp // (32 * G))
+    Mpad = 32 * G * npl
+    if 4 * (3 * Mpad + 2 * G * FWD_XS + G * 4) > _build.SMEM_ROWS_MAX:
+        raise ValueError("forward kernel: Mp %d exceeds the widest layout"
+                         % Mp)
+    return 1, G, npl, Mpad
+
+
+def slot_index(Mp: int, G: int, npl: int) -> np.ndarray:
+    """[Mpad] int64: the state k held at each slot of the kernel's layout
+    (slot (j*G + g)*32 + lane holds k = (g*32 + lane)*npl + j), -1 where
+    the slot lies beyond Mp."""
+    j, g, lane = np.meshgrid(np.arange(npl), np.arange(G), np.arange(32),
+                             indexing="ij")
+    k = ((g * 32 + lane) * npl + j).reshape(-1)
+    return np.where(k < Mp, k, -1)
+
+
+def slot_tables(bt: BankTensors, G: int, npl: int):
+    """Emission [H, K, Mpad] and transition [H, 8, Mpad] tables in the
+    kernel's slot layout (zero beyond Mp), cached on the bank."""
+    key = ("fwd_slots", G, npl)
+    hit = bt.cache.get(key)
+    if hit is None:
+        k = slot_index(bt.Mp, G, npl)
+        src = torch.as_tensor(np.maximum(k, 0), device=bt.device)
+        live = torch.as_tensor(k >= 0, device=bt.device)
+        hit = tuple((t.index_select(2, src) * live).contiguous()
+                    for t in (bt.em, bt.trans))
+        bt.cache[key] = hit
+    return hit
+
+
+def length_order(qlens: torch.Tensor) -> torch.Tensor:
+    """Query indices sorted by length, longest first (stable), int32."""
+    return torch.sort(qlens.to(torch.int64), descending=True,
+                      stable=True).indices.to(torch.int32)
 
 
 def forward_nats_ref(bt: BankTensors, codes: torch.Tensor,
@@ -79,13 +144,12 @@ def forward_nats_ref(bt: BankTensors, codes: torch.Tensor,
 def forward_nats(bt: BankTensors, codes: torch.Tensor,
                  qlens: torch.Tensor) -> torch.Tensor:
     """Forward nats [Q, H]: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; both take the queries in length order and
+    return the scores in the caller's order."""
     dev = bt.device
     if codes.device != dev or qlens.device != dev:
         raise ValueError("bank, codes and qlens must share a device")
-    if dev.type == "cpu":
-        return forward_nats_ref(bt, codes, qlens)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError("unsupported device %s" % dev)
     codes = codes.to(torch.int32).contiguous()
     qlens = qlens.to(torch.int32).contiguous()
@@ -95,11 +159,18 @@ def forward_nats(bt: BankTensors, codes: torch.Tensor,
     out = torch.empty((Q, bt.H), dtype=torch.float32, device=dev)
     if Q == 0 or bt.H == 0:
         return out
+    order = length_order(qlens)
+    if dev.type == "cpu":
+        o = order.long()
+        out[o] = forward_nats_ref(bt, codes[o], qlens[o])
+        return out
+    layout, G, npl, Mpad = fwd_layout(bt.Mp)
+    em_t, tr_t = slot_tables(bt, G, npl)
     lib = _build.lib()
     rc = lib.witch_forward_nats(
-        bt.em.data_ptr(), bt.trans.data_ptr(), codes.data_ptr(),
-        qlens.data_ptr(), out.data_ptr(), bt.H, Q, bt.Mp, bt.K,
-        codes.shape[1], _build.stream_ptr(dev))
+        em_t.data_ptr(), tr_t.data_ptr(), codes.data_ptr(),
+        qlens.data_ptr(), order.data_ptr(), out.data_ptr(), bt.H, Q, bt.K,
+        codes.shape[1], layout, G, npl, Mpad, _build.stream_ptr(dev))
     _build.check(rc, "forward")
     return out
 

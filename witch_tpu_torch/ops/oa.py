@@ -4,8 +4,8 @@
 Counterpart of witch_tpu/ops/pallas_oa.py (pallas_oa,
 oa_columns_device, bank_strictly_positive). Per (model, query) pair:
 Backward and Forward in the odds domain with exact power-of-two
-rescaling, f32 posteriors, the OA DP of hmm/align_ref.py:oa_fill in
-f64, and the first-max-wins traceback of align_ref.oa_trace. The
+rescaling, f32 posteriors, the OA DP of witch_tpu/hmm/align_ref.py:
+oa_fill in f64, and the first-max-wins traceback of its oa_trace. The
 decision margin keeps the TPU kernel's definition (see csrc/oa.cu).
 """
 

@@ -4,8 +4,8 @@ witch_msa/gcmm/gcmm.py:93-267), ported from witch_tpu/pipeline.py.
 Stages:
   1. backbone alignment and tree: given (scenario D), the tree estimated
      (scenario C, tree_estimate.py) or both made from unaligned input
-     (scenario A, backbone.py) -> eHMM ensemble (host,
-     witch_tpu.ensemble) or a reused decomposition directory
+     (scenario A, backbone.py) -> eHMM ensemble (host, ensemble.py)
+     or a reused decomposition directory
   2. all-vs-all Forward pre-scores on the device (ops/forward.py)
   3. candidate selection, then the reporting gate: envelope null2 on the
      device (hmm/gate_device.py), regions, trace ensembles and the exact
@@ -13,7 +13,7 @@ Stages:
      the whole grid through the device flank prefilter
      (hmm/flank_device.py) and native domain definition; then the
      exact-f32 print overlay
-  4. weights (witch_tpu.weighting)
+  4. weights (weighting.py)
   5. per-query posterior+OA on the device (aligner.py) and the merge
      (witch-ng DP or old-witch GCM)
   6. transitive merge into the backbone; outputs
@@ -35,20 +35,19 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from witch_tpu.config import Configs
-from witch_tpu.core.alignment import PackedAlignment
-from witch_tpu.core.alphabet import ALPHABETS, infer_datatype
-from witch_tpu.ensemble import (Ensemble, build_ensemble, read_ensemble_dir,
-                                write_decomposition, write_search_results)
-from witch_tpu.hmm.bank import build_banks
-from witch_tpu.hmm.gate_device import near_print_boundary
-from witch_tpu.io.fasta import read_fasta
-from witch_tpu.weighting import calculate_weights, read_weights, \
-    write_weights
-
+from .config import Configs
+from .core.alignment import PackedAlignment
+from .core.alphabet import ALPHABETS, infer_datatype
 from .device import bank_to_torch, resolve_device
-from .hmm.gate_device import evaluate_gate_device
+from .ensemble import (Ensemble, build_ensemble, read_ensemble_dir,
+                       read_search_results, write_decomposition,
+                       write_search_results)
+from .hmm.bank import build_banks
+from .hmm.gate_device import evaluate_gate_device, near_print_boundary
+from .io.fasta import read_fasta, write_fasta_bytes
+from .merger import merge_rows_bytes
 from .ops.forward import forward_bits
+from .weighting import calculate_weights, read_weights, write_weights
 
 OMEGA = 1.0 / 256.0           # null2 prior weight (seqbias floor)
 BIAS_FLOOR_BITS = float(np.log2(1.0 + OMEGA))
@@ -115,8 +114,8 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
 
     Returns (scores [Q, H] rounded to 0.1 bit, valid [Q, H], indices,
     banks): valid=False where the reporting gate drops a candidate."""
-    from witch_tpu.hmm.profile import configure, null1_score
-    from witch_tpu.native import _domaindef, set_trace_alphabet
+    from .hmm.profile import configure, null1_score
+    from .native import _domaindef, set_trace_alphabet
 
     indices = ens.indices
     set_trace_alphabet(ens.molecule)
@@ -277,8 +276,8 @@ def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
     device's rows (evaluate_targets_rows, f64 Forward included). The
     device null2 gate is not used here (witch_tpu/pipeline.py:528-535).
     Returns drop [Q, H] (the pairs the prefilter found no region in)."""
-    from witch_tpu.hmm.profile import configure
-    from witch_tpu.native import _domaindef
+    from .hmm.profile import configure
+    from .native import _domaindef
 
     from .hmm.flank_device import prefilter_grid
 
@@ -317,8 +316,8 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
     """The candidate pairs' reporting gate: flank rows (native AVX-512
     scan), f64 Forward (native, in a side thread), envelope null2
     (device), then the print-boundary re-evaluations."""
-    from witch_tpu.hmm.profile import configure
-    from witch_tpu.native import _domaindef
+    from .hmm.profile import configure
+    from .native import _domaindef
 
     # the gate's flank rows come from the native AVX-512 scan (raises on
     # an engine built without AVX-512)
@@ -567,7 +566,6 @@ def main_alignment_process(device=None):
         s = time.time()
         scores = valid = None
         if have_dir:
-            from witch_tpu.ensemble import read_search_results
             search = read_search_results(Configs.hmmdir)
             if search and set(search) == set(ens.indices):
                 Configs.log("Reusing %d hmmsearch result files from %s"
@@ -619,8 +617,6 @@ def main_alignment_process(device=None):
                     % (time.time() - s))
 
     s = time.time()
-    from witch_tpu.io.fasta import write_fasta_bytes
-    from witch_tpu.merger import merge_rows_bytes
     mnames, mmat, ins_mask = merge_rows_bytes(
         backbone.names, backbone.to_bytes_matrix(), rows,
         collapse_singletons=Configs.collapse_singletons)
