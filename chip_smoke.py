@@ -37,7 +37,11 @@ Phases:
   4. seeded DNA scenario D, 1,000 backbone + 1,000 queries
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
-     above the guard, all three kernels launched; then (4c) the same
+     above the guard, all three kernels launched, the gate line (null2's
+     device time, kernel ms and launches); the query rows against the JAX
+     package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
+     equal, at least DNA1K_JAX_MIN, and for a differing row the device
+     and native pre-score rankings of its top models; then (4c) the same
      backbone with --full-search-results 1 on its first 60 queries, a
      grid the prefilter drops pairs of: every query placed or ignored,
      and full_search_replay (the path's flank inputs through kernel and
@@ -47,10 +51,15 @@ Phases:
      device rows and on its own f64 rows); then scenario C on the
      same data (-e left out): the device distance counts equal numpy
      float64, every query placed or ignored, backbone rows intact;
+     (4g) the reference WITCH's DNA example against its oracle (all
+     1,000 masked rows), where tests/test_golden.py finds its data, or a
+     line saying the data is absent;
   5. scenario A: -i of 300 ungapped full-length rows and 100 fragments
      (make_scale_dataset.py) with --backbone-size 100: every input
      sequence in the output with its residues (or ignored), masked rows
-     flush;
+     flush, the gate line; (5b) its gate envelopes replayed through the
+     null2 kernel (ms, launches, bound) and, on 1,024 seeded envelopes,
+     its plain version within 1e-4 relative;
   6. {"kernels": [...]} JSON (each kernel's launches on the main path,
      error, ms and plain ms, and its bound: the larger of its operations
      at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, and its
@@ -87,6 +96,12 @@ WIDE_M = (8000, 16384)              # phase 2e model sizes
 DNA_FULL = 60                       # dna1k queries of the full search
 SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
+# dna1k against the JAX package (tests/golden/ref_dna1k.queries.masked.
+# fasta.gz): the query rows equal on the first chip run (PERF.md), below
+# which the check fails; the JAX run ignored no query; rows diagnosed
+DNA1K_JAX_MIN = 1000
+JAX_DNA1K_IGNORED = ()
+DNA1K_DIAG = 20
 # bounds: H100 SXM f32 rate outside the tensor cores and HBM rate (the
 # card's published peaks); f32 operations per DP cell (model
 # state x residue, at the models' own M), read off the plain versions:
@@ -292,19 +307,28 @@ class Recorder:
         import witch_tpu_torch.tree_estimate as te
         self.gate, self.null2, self.oa = [], [], []
         self.full, self.counts, self.dist = [], [], []
-        self.grid, self.fwd = [], []
+        self.grid, self.fwd, self.fwd_bits, self.dgate = [], [], [], []
         orig_gate, orig_null2, orig_oa = (pl.evaluate_gate_device,
                                           gd.null2_envelopes, al.oa_columns)
         orig_full, orig_counts, orig_dist = (
             pl._full_search_gate, te.identity_counts, te.pairwise_distances)
         orig_grid = fd.prefilter_grid
         orig_fwd = pl.forward_bits
+        orig_dgate = pl._device_gate
 
         def fwd(bt, codes, lens):
             self.fwd.append((bt, np.array(codes), np.array(lens)))
-            return orig_fwd(bt, codes, lens)
+            bits = orig_fwd(bt, codes, lens)
+            self.fwd_bits.append(bits)
+            return bits
 
         pl.forward_bits = fwd
+
+        def dgate(ens, indices, banks, *a, **kw):
+            self.dgate.append((ens, list(indices), banks))
+            return orig_dgate(ens, indices, banks, *a, **kw)
+
+        pl._device_gate = dgate
 
         def full(ens, indices, *a, **kw):
             drop = orig_full(ens, indices, *a, **kw)
@@ -349,7 +373,7 @@ class Recorder:
 
     def clear(self):
         for x in (self.gate, self.null2, self.oa, self.full, self.counts,
-                  self.dist, self.grid, self.fwd):
+                  self.dist, self.grid, self.fwd, self.fwd_bits, self.dgate):
             x.clear()
 
 
@@ -417,9 +441,20 @@ def phase_amino(tmp):
 
 
 def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
-                "amino500 gate envelopes", key="null2"):
+                "amino500 gate envelopes", key="null2", sample=None,
+                gate=True):
+    """The null2 kernel on the envelopes the main path gave it (recorded
+    null2_envelopes calls): against the plain version within 1e-4
+    relative (on a seeded subset of `sample` envelopes when given), its ms
+    on all of them, and with `gate` the assembled gate tuples against the
+    native engine. Relative error is |k - p| / max(|p|, floor): floor
+    1e-2 for useI, usetot and n2dot; 1 nat for envsc, a log score whose
+    f32 error is absolute (a sum of Ld logs: ~1e-5 nats at 700 rows, which
+    a score near 0 turns into any relative error), so it is held to 1e-4
+    nats there (1.4e-4 bits; the parity bar for null2 is ~1e-4 bits)."""
     import numpy as np
     import torch
+    from witch_tpu_torch import _build
     from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.ops.null2 import (NCODE, _pack, null2_nats,
                                            null2_nats_ref)
@@ -429,7 +464,9 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
     abs_err = 0.0
     ms = plain_ms = 0.0
     cells = nbytes = 0.0
-    n_env = 0
+    n_env = n_cmp = launches = 0
+    rng = np.random.default_rng(1016)
+    total = sum(len(e) for _, e in rec.null2)
     for bt, entries in rec.null2:
         if not entries:
             continue
@@ -439,19 +476,42 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
                            for row, sub, _ in entries))
         nbytes += table_bytes(bt) + 4 * n_res + 4 * (3 + NCODE) * len(entries)
         pk = _pack(entries, dev)
+        n0 = _build.LAUNCHES["null2"]
         sk, dk = null2_nats(bt, *pk)
-        sp, dp = null2_nats_ref(bt, *pk, chunk=1024)
+        launches += _build.LAUNCHES["null2"] - n0
+        sub = list(range(len(entries)))
+        if sample is not None and total > sample:
+            k = max(1, round(sample * len(entries) / total))
+            sub = sorted(rng.choice(len(entries), min(k, len(entries)),
+                                    replace=False).tolist())
+        pks = _pack([entries[t] for t in sub], dev)
+        sp, dp = null2_nats_ref(bt, *pks, chunk=512 if sample else 1024)
         torch.cuda.synchronize()
-        for a, b in ((sk, sp), (dk, dp)):
+        n_cmp += len(sub)
+        idx = torch.as_tensor(sub, device=dev)
+        for a, b, floor in ((sk[idx, :1], sp[:, :1], 1.0),
+                            (sk[idx, 1:], sp[:, 1:], 1e-2),
+                            (dk[idx], dp, 1e-2)):
             d = (a - b).abs()
             abs_err = max(abs_err, float(d.max()))
-            worst = max(worst, float((d / b.abs().clamp(min=1e-2)).max()))
-        ms += cuda_ms(lambda: null2_nats(bt, *pk), 3)
-        plain_ms += cuda_ms(lambda: null2_nats_ref(bt, *pk, chunk=1024), 1)
-    say("  %d envelopes: kernel %.2f ms, plain %.2f ms" % (n_env, ms,
-                                                          plain_ms))
+            worst = max(worst, float((d / b.abs().clamp(min=floor)).max()))
+        ms += cuda_ms(lambda: null2_nats(bt, *pk), 2 if sample else 3)
+        plain_ms += cuda_ms(lambda: null2_nats_ref(
+            bt, *pks, chunk=512 if sample else 1024), 1)
+    b_ms, b_by = bound_ms("null2", cells, nbytes)
+    say("  %d envelopes (%d against plain), %d launches: kernel %.2f ms, "
+        "plain %.2f ms (on those %d); %.4g DP cells: bound %.3f ms (%s), "
+        "stored rows 16 B per state-row %.3f ms at %.3g TB/s"
+        % (n_env, n_cmp, launches, ms, plain_ms, n_cmp, cells, b_ms, b_by,
+           16 * cells / HBM_BYTES_PER_S * 1e3, HBM_BYTES_PER_S / 1e12))
     check(n_env > 0 and worst <= 1e-4,
           "null2 kernel vs plain: max relative error %.3g <= 1e-4" % worst)
+    result[key] = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
+                       plain_ms=plain_ms, envelopes=n_env, cells=cells,
+                       bytes=nbytes, bound_ms=b_ms, launches=launches,
+                       rows_bytes_ms=16 * cells / HBM_BYTES_PER_S * 1e3)
+    if not gate:
+        return
 
     # assembled gate tuples vs the native engine on the same flank rows
     nbad = npairs = 0
@@ -475,9 +535,6 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
         "%.3g, |dsenv| %.3g, |dsbsum| %.3g" % (npairs, nbad, dsb, dse, dss))
     check(npairs > 0 and nbad == 0 and dsb < 2e-3 and dse < 2e-3
           and dss < 5e-3, "gate assembly vs native evaluate_targets_rows")
-    result[key] = dict(max_abs_err=abs_err, max_rel_err=worst, ms=ms,
-                       plain_ms=plain_ms, envelopes=n_env, cells=cells,
-                       bytes=nbytes)
 
 
 def oa_compare(bt, pairs_rows, Ldmax, label):
@@ -627,6 +684,123 @@ def phase_dna(tmp, rec):
     ens = [ln.split("\t", 1)[-1].strip() for ln in open(
         os.path.join(outdir, "log.txt")) if "Ensemble of" in ln]
     say("  " + " | ".join(ens + gate))
+    dna1k_vs_jax(rec, data, masked, ignored)
+    return launches
+
+
+def dna1k_vs_jax(rec, data, masked, ignored):
+    """The dna1k query rows against the JAX package's (scenario D on the
+    CPU, committed in tests/golden/; no query ignored there). For each
+    differing row, the two pre-score rankings of the query's top models:
+    the port's f32 device pre-scores and the reference CPU path's native
+    ones (forward_targets_simd, as witch_tpu/pipeline.py:232-267 calls
+    it), and the gap between them."""
+    import numpy as np
+    from witch_tpu_torch.config import Configs
+    from witch_tpu_torch.hmm.profile import configure, null1_score
+    from witch_tpu_torch.io.fasta import read_fasta
+    from witch_tpu_torch.native import _domaindef
+    from witch_tpu_torch.pipeline import _native_args
+
+    with gzip.open(os.path.join(GOLD, "ref_dna1k.queries.masked.fasta.gz"),
+                   "rt") as f:
+        ref = dict(read_fasta(f))
+    queries = list(read_fasta(os.path.join(data, "queries.fasta")))
+    same = [n for n, _ in queries if masked.get(n) == ref.get(n)]
+    differ = [q for q, (n, _) in enumerate(queries)
+              if masked.get(n) != ref.get(n)]
+    say("  dna1k vs the JAX package's rows: %d/%d query rows equal; "
+        "ignored here %d (JAX: %d)" % (len(same), len(queries),
+                                       len(ignored), len(JAX_DNA1K_IGNORED)))
+    ens, indices, banks = rec.dgate[-1]
+    H = len(indices)
+    col_of = {int(idx): j for j, idx in enumerate(indices)}
+    pre = np.zeros((len(queries), H))
+    for b, bits in zip(banks, rec.fwd_bits):
+        for j, idx in enumerate(b.hmm_indices):
+            pre[:, col_of[int(idx)]] = bits[:, j]
+    size = np.log2([ens.cores[int(i)].nseq for i in indices])
+    top_n = min(H, int(Configs.num_hmms) + 4)      # the gate's NEAR depth
+    qcodes = rec.gate[-1][0][3]
+    args = {}
+    for q in differ[:DNA1K_DIAG]:
+        name, seq = queries[q]
+        codes = [np.ascontiguousarray(qcodes[q], np.int32)]
+        if len(codes[0]) != len(seq):
+            raise AssertionError("dna1k: query %d of the gate is not %s"
+                                 % (q, name))
+        nat = np.zeros(H)
+        for j in range(H):
+            if j not in args:
+                args[j] = _native_args(configure(
+                    ens.cores[int(indices[j])], multihit=True))
+            f = float(np.asarray(_domaindef.forward_targets_simd(
+                *args[j], codes, 1))[0])
+            nat[j] = (f - null1_score(len(codes[0]))) / np.log(2.0)
+        adj_p, adj_n = pre[q] + size, nat + size
+        rp = np.argsort(-adj_p, kind="stable")[:top_n]
+        rn = np.argsort(-adj_n, kind="stable")[:top_n]
+        first = next((r for r in range(top_n) if rp[r] != rn[r]), None)
+        gap = ""
+        if first is not None:
+            a, b = rp[first], rn[first]
+            gap = ("first differing rank %d: device ranks model %d over %d "
+                   "by %.3g bits, native ranks %d over %d by %.3g bits"
+                   % (first, indices[a], indices[b], adj_p[a] - adj_p[b],
+                      indices[b], indices[a], adj_n[b] - adj_n[a]))
+        say("  row %s differs: device top %s | native top %s | %s max "
+            "|dpre| %.3g bits over the top models"
+            % (name, [int(indices[j]) for j in rp],
+               [int(indices[j]) for j in rn],
+               gap or "rankings equal;",
+               float(np.abs(pre[q, rp] - nat[rp]).max())))
+    check(len(same) >= DNA1K_JAX_MIN, "dna1k: %d/%d query rows equal the "
+          "JAX package's (at least %d, the count of the first chip run)"
+          % (len(same), len(queries), DNA1K_JAX_MIN))
+
+
+def phase_dna_golden(tmp):
+    """The reference WITCH's DNA example (scenario D, 500 queries) against
+    its oracle, as tests/test_golden.py's full tier compares it, when the
+    example data is on this host."""
+    import re
+    from witch_tpu_torch.io.fasta import read_fasta
+
+    say("== phase 4g: DNA golden (reference example data)")
+    with open(os.path.join(ROOT, "tests", "test_golden.py")) as f:
+        data = re.search(r'^DATA = "([^"]+)"', f.read(), re.M).group(1)
+    if not os.path.isdir(data):
+        say("  the example data (%s, as tests/test_golden.py names it) is "
+            "absent on this host: phase skipped" % data)
+        return None
+    outdir = os.path.join(tmp, "dna_golden")
+    out, dt, launches = run_cli([
+        "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+        "-e", os.path.join(data, "backbone.tre"),
+        "-q", os.path.join(data, "unaligned_frag.fasta"),
+        "-d", outdir, "-o", "aligned.fasta"])
+    say("  wall %.2f s; launches %s" % (dt, launches))
+
+    def rows(fh):
+        d, name = {}, None
+        for line in fh:
+            line = line.strip()
+            if line.startswith(">"):
+                name = line[1:].split()[0]
+                d[name] = []
+            elif name is not None:
+                d[name].append(line)
+        return {k: "".join(v) for k, v in d.items()}
+
+    with gzip.open(os.path.join(GOLD, "ref_d.aligned.masked.fasta.gz"),
+                   "rt") as f:
+        gold = rows(f)
+    with open(os.path.join(outdir, "aligned.masked.fasta")) as f:
+        mine = rows(f)
+    bad = [n for n in gold if mine.get(n) != gold[n]]
+    check(len(gold) == 1000 and not bad, "DNA golden: %d/%d masked rows "
+          "equal the reference oracle %s" % (len(gold) - len(bad), len(gold),
+                                            bad[:5]))
     return launches
 
 
@@ -1143,7 +1317,7 @@ def phase_scenario_c(tmp, rec):
     return launches
 
 
-def phase_scenario_a(tmp):
+def phase_scenario_a(tmp, rec):
     from witch_tpu_torch.io.fasta import read_fasta, write_fasta
 
     say("== phase 5: scenario A, -i (300 full-length + 100 fragments), "
@@ -1162,11 +1336,14 @@ def phase_scenario_a(tmp):
     inp = os.path.join(data, "input.fasta")
     write_fasta(recs, inp)
     outdir = os.path.join(tmp, "scenA_out")
+    rec.clear()
     out, dt, launches = run_cli(["-i", inp, "-d", outdir, "-o",
                                  "aligned.fasta", "--backbone-size",
                                  str(n_bb)])
-    print_breakdown(outdir)
+    lines = print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
+    say("  " + " | ".join(ln.split("\t", 1)[-1].strip() for ln in lines
+                          if "device gate" in ln))
     placed, n_ign, bad = _query_rows_ok(outdir, inp)
     check(not bad and placed + n_ign == len(recs),
           "scenario A: all %d input sequences in the output with their "
@@ -1230,7 +1407,12 @@ def main():
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
         paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
-        paths["scenario_a"] = timed(phase_scenario_a, tmp)
+        golden = timed(phase_dna_golden, tmp)
+        if golden:
+            paths["dna_golden"] = golden
+        paths["scenario_a"] = timed(phase_scenario_a, tmp, rec)
+        timed(phase_null2, rec, dev, result, "5b: null2 kernel vs plain, "
+              "scenario A gate envelopes", "null2_scenario_a", 1024, False)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1253,14 +1435,16 @@ def main():
                  plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                  library_ms=None, cells=r["cells"])
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
-                    "4d_dna1k"):
+                    "4d_dna1k", "scenario_a"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],
                           "plain_ms_" + tag: r2["plain_ms"],
                           "max_abs_err_" + tag: r2["max_abs_err"]})
-                if "bound_ms" in r2:
-                    k["bound_ms_" + tag] = r2["bound_ms"]
+                for extra in ("bound_ms", "envelopes", "launches",
+                              "rows_bytes_ms"):
+                    if extra in r2:
+                        k["%s_%s" % (extra, tag)] = r2[extra]
                 k["max_abs_err"] = max(k["max_abs_err"], r2["max_abs_err"])
         kernels.append(k)
     say("chip_smoke: all phases passed in %.1f s" % (time.time() - t_start))

@@ -92,6 +92,30 @@ def test_gate_matches_native_and_jax(seed):
                 assert abs(other[j][5][t] - got[j][5][t]) < 5e-3
 
 
+@needs_simd
+def test_gate_stats_name_each_window():
+    """The gate times its device thread itself (t_null2), apart from the
+    host multidomain pool (t_multi_host) and the join after it (t_wait);
+    on the CPU no kernel runs, so its ms and launches stay 0."""
+    cores, queries = case(3)
+    bank = build_banks(cores, uniform=True, n_buckets=1)[0]
+    clist = [np.ascontiguousarray(c, np.int32) for c in queries]
+    allargs = {j: margs(configure(c, multihit=True))
+               for j, c in enumerate(cores)}
+    by_j = {j: list(range(len(clist))) for j in range(len(cores))}
+    flank_rows = {}
+    for j in by_j:
+        _, mo, pb, pe = _domaindef.flank_targets_simd(*allargs[j], clist, 1)
+        flank_rows[j] = (mo, pb, pe)
+    _, stats = evaluate_gate_device(
+        [bank_to_torch(bank, "cpu")], {j: (0, j) for j in by_j}, allargs,
+        queries, by_j, flank_rows, nthreads=2)
+    assert stats["entries"] >= 1 and stats["t_null2"] > 0.0
+    assert stats["t_multi_host"] >= 0.0 and stats["t_wait"] >= 0.0
+    assert stats["null2_kernel_ms"] == 0.0 and stats["null2_launches"] == 0
+    assert "t_device" not in stats and "t_multi" not in stats
+
+
 def test_null2_envelopes_match_jax_interpret():
     from witch_tpu.ops.pallas_null2 import null2_envelopes_device
     cores = [synth_core(30, 8, 3), synth_core(41, 8, 4)]

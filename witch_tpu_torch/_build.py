@@ -34,6 +34,10 @@ SMEM_ROWS_MAX = 232448 - 1024
 # Kernel launches per wrapper since the last reset (plain integers: the
 # wrappers add one where they launch their kernel, and nowhere else).
 LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0}
+# CUDA-event milliseconds of the null2 kernel's launches since the last
+# reset (ops/null2.py adds each call's launches, from the first to the
+# last, once the last has finished)
+KERNEL_MS = {"null2": 0.0}
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +46,8 @@ _lib = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in KERNEL_MS:
+        KERNEL_MS[k] = 0.0
 
 
 def _nvcc() -> str:
@@ -109,24 +115,27 @@ def lib():
             so = ctypes.CDLL(path)
             P, I = ctypes.c_void_p, ctypes.c_int
             so.witch_forward_nats.argtypes = [P] * 6 + [I] * 8 + [P]
-            so.witch_null2.argtypes = [P] * 12 + [I, I, I, I, P]
+            so.witch_null2.argtypes = [P] * 13 + [I] * 6 + [P]
+            so.witch_null2_ctas_per_sm.argtypes = [I] * 4 + [P]
             so.witch_oa.argtypes = [P] * 16 + [I, I, I, I, P]
             so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]
             for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
-                       so.witch_flank):
+                       so.witch_flank, so.witch_null2_ctas_per_sm):
                 fn.restype = I
             _lib = so
         return _lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error; count the launch."""
+def check(rc: int, name: str, count: bool = True) -> None:
+    """Raise if a C entry reported a CUDA error; count the launch (unless
+    the entry launched nothing)."""
     if rc != 0:
         import torch
         raise RuntimeError("CUDA kernel %s failed to launch: error %d (%s)"
                            % (name, rc, torch.cuda.get_device_name(0)
                               if torch.cuda.is_available() else "no device"))
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def stream_ptr(device) -> int:

@@ -1,8 +1,9 @@
-// Shared device helpers for the profile-HMM kernels null2.cu, oa.cu and
-// flank.cu (forward.cu has its own row update and takes only the
-// constants and set_smem from here).
+// Shared device helpers for the profile-HMM kernels. oa.cu and flank.cu
+// use the block-wide row helpers below; forward.cu and null2.cu run a
+// warp per instance and take only the constants, the lane-slot row
+// (LaneRow), pair_barrier and set_smem from here.
 //
-// Each of those kernels runs one CTA of NT threads per DP instance (a
+// The block-wide kernels run one CTA of NT threads per DP instance (a
 // query-model pair or an envelope). The model-state axis k in [0, Mp) is
 // cut into NT contiguous chunks, one per thread: thread t owns [k0, k1).
 // A DP row lives in shared memory and is updated in place; each thread
@@ -119,28 +120,6 @@ static __device__ void block_sum_max(float &s, float &m, float *sh) {
     for (int i = 1; i < NWARP; ++i) {
         s += sh[i];
         m = fmaxf(m, sh[NWARP + i]);
-    }
-    __syncthreads();
-}
-
-// Two sums at once, one barrier pair.
-static __device__ void block_sum2(float &a, float &b, float *sh) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        a += __shfl_xor_sync(FULL_MASK, a, o);
-        b += __shfl_xor_sync(FULL_MASK, b, o);
-    }
-    if (lane == 0) {
-        sh[w] = a;
-        sh[NWARP + w] = b;
-    }
-    __syncthreads();
-    a = sh[0];
-    b = sh[NWARP];
-    for (int i = 1; i < NWARP; ++i) {
-        a += sh[i];
-        b += sh[NWARP + i];
     }
     __syncthreads();
 }
@@ -305,6 +284,40 @@ static __device__ __forceinline__ void scale_rows(float *a, float *b, float *c,
         b[k] *= inv;
         if (c) c[k] *= inv;
     }
+}
+
+// Lane-slot layout of the warp-per-instance kernels (forward.cu,
+// null2.cu): an instance's row of Mpad = 32 G npl states is cut into
+// contiguous chunks of npl states, one per lane of its G warps; state
+// k = (g*32 + lane)*npl + j lives at slot (j*G + g)*32 + lane, so a warp's
+// access to its j-th states touches 32 consecutive floats. LaneRow holds
+// three such rows, in registers (NPL > 0) or in shared memory (NPL = 0,
+// npl at run time).
+
+template <int NPL> struct LaneRow {      // registers
+    float m[NPL], i[NPL], u[NPL];
+    __device__ __forceinline__ void bind(float *, int, int) {}
+    __device__ __forceinline__ float &M(int j) { return m[j]; }
+    __device__ __forceinline__ float &I(int j) { return i[j]; }
+    __device__ __forceinline__ float &U(int j) { return u[j]; }
+};
+
+template <> struct LaneRow<0> {          // shared memory, runtime npl
+    float *m, *i, *u;
+    int S;
+    __device__ __forceinline__ void bind(float *base, int Mpad, int S_) {
+        m = base;
+        i = base + Mpad;
+        u = base + 2 * Mpad;
+        S = S_;
+    }
+    __device__ __forceinline__ float &M(int j) { return m[j * S]; }
+    __device__ __forceinline__ float &I(int j) { return i[j * S]; }
+    __device__ __forceinline__ float &U(int j) { return u[j * S]; }
+};
+
+static __device__ __forceinline__ void pair_barrier(int id, int nthreads) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 static inline cudaError_t set_smem(const void *fn, size_t bytes) {

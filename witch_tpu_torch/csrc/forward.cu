@@ -53,35 +53,6 @@
 #define FWD_THREADS 256
 #define FWD_XS 8          // floats per warp in the per-row exchange
 
-// Slot layout of a pair's Mpad states: state k = (g*32 + lane)*npl + j
-// lives at slot (j*G + g)*32 + lane.
-
-template <int NPL> struct LaneRow {      // registers
-    float m[NPL], i[NPL], u[NPL];
-    __device__ __forceinline__ void bind(float *, int, int) {}
-    __device__ __forceinline__ float &M(int j) { return m[j]; }
-    __device__ __forceinline__ float &I(int j) { return i[j]; }
-    __device__ __forceinline__ float &U(int j) { return u[j]; }
-};
-
-template <> struct LaneRow<0> {          // shared memory, runtime npl
-    float *m, *i, *u;
-    int S;
-    __device__ __forceinline__ void bind(float *base, int Mpad, int S_) {
-        m = base;
-        i = base + Mpad;
-        u = base + 2 * Mpad;
-        S = S_;
-    }
-    __device__ __forceinline__ float &M(int j) { return m[j * S]; }
-    __device__ __forceinline__ float &I(int j) { return i[j * S]; }
-    __device__ __forceinline__ float &U(int j) { return u[j * S]; }
-};
-
-static __device__ __forceinline__ void pair_barrier(int id, int nthreads) {
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
-}
-
 template <int NPL>
 __global__ void __launch_bounds__(FWD_THREADS)
     fwd_kernel(const float *__restrict__ em_t, const float *__restrict__ tr_t,

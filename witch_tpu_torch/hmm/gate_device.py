@@ -27,6 +27,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .. import _build
 from ..ops.null2 import NCODE, null2_envelopes
 
 GUARD_BITS = 5e-3          # distance to a 0.05 rounding boundary
@@ -98,7 +99,12 @@ def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
     usetot = np.zeros(n_e)
     entry_bank = np.asarray(entry_bank, np.int64)
 
+    t_null2 = [0.0]
+
     def run_device_null2():
+        # its wall time ends with each bank's copy back, which waits for
+        # the kernel: the device null2 stage as the gate sees it
+        t = time.time()
         for bi, bt in enumerate(banks_t):
             sel = np.flatnonzero(entry_bank == bi)
             if len(sel) == 0:
@@ -108,6 +114,7 @@ def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
             n2dot[sel] = nd
             useI[sel] = ui
             usetot[sel] = ut
+        t_null2[0] = time.time() - t
 
     def eval_multi(args):
         j, qlist = args
@@ -133,6 +140,7 @@ def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
         except BaseException as e:   # noqa: BLE001 - re-raised below
             dev_exc.append(e)
 
+    ms0, n0 = _build.KERNEL_MS["null2"], _build.LAUNCHES["null2"]
     dev_thread = threading.Thread(target=dev_wrap, daemon=True)
     dev_thread.start()
     multi_out = {}
@@ -204,9 +212,16 @@ def evaluate_gate_device(banks_t, bankloc_of_col, allargs, qcodes,
                       np.zeros(n), senv, sbsum, ld]
 
     # ---- stage 5: guards (native re-evaluation) ----------------------
+    # windows: t_null2 the device thread's own time (null2 on the card,
+    # copies back included), t_multi_host the host pool of multidomain
+    # pairs that runs beside it, t_wait the join after the pool; the
+    # kernel's CUDA-event ms and launches of this gate
     stats = dict(entries=n_e, multi=sum(int(h.sum())
                                         for _, h in cls.values()),
-                 t_classify=t1 - t0, t_device=t2 - t1, t_multi=t3 - t2,
+                 t_classify=t1 - t0, t_null2=t_null2[0],
+                 t_multi_host=t2 - t1, t_wait=t3 - t2,
+                 null2_kernel_ms=_build.KERNEL_MS["null2"] - ms0,
+                 null2_launches=_build.LAUNCHES["null2"] - n0,
                  multi_flags={j: cls[j][1] for j, _ in items})
 
     def reeval(j, plist):

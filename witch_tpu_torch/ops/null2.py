@@ -6,11 +6,20 @@ null2_envelopes_device). Per envelope: the isolated unihit Forward over
 the envelope subsequence with pmove = 2/(L_full+2) (envsc, nats) and a
 Backward accumulating posterior state usage; outputs
 (envsc, n2dot[128] = sum_k useM[k] em[k, x], useI, usetot).
+
+The kernel runs one warp, or G warps for wide models, per envelope;
+n2_layout picks G, the states per lane and where the row lives from the
+bank width, and the tables are laid out as forward's (slot_tables).
+plan_launches groups the envelopes by model into CTAs, longest first,
+and cuts the launches by scratch bytes; on the CPU the plain version
+runs the same plan, and both write each result back at its input index.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +28,9 @@ from .. import _build
 from ..device import BankTensors
 from ._plain import (SCALE_FLOOR, bck_chain, bck_chain_coeffs, fwd_chain,
                      fwd_chain_coeffs, shift_l, shift_r)
+from .forward import slot_tables
 
 NCODE = 128
-SCRATCH_BYTES = 2 << 30     # device scratch for stored Forward rows
 
 
 def _pack(entries, device):
@@ -42,7 +51,10 @@ def _pack(entries, device):
 def null2_nats_ref(bt: BankTensors, rows, flat, off, lds, pmove,
                    chunk: int = 256):
     """Plain version. Returns (scal [n, 3] = envsc, useI, usetot;
-    n2dot [n, 128]) as f32 tensors on the bank's device."""
+    n2dot [n, 128]) as f32 tensors on the bank's device. The DP runs in
+    f32; the scale ledgers (the logs of the row scales' products) are
+    summed in f64, as the kernel sums them: in f32 their rounding alone
+    reaches ~1e-4 of the posterior usage over ~1,400 rows."""
     n = rows.shape[0]
     dev = bt.device
     scal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -81,7 +93,7 @@ def _null2_chunk(bt, rows, flat, off, lds, pmove):
     N = torch.ones_like(pm)
     B = pm.clone()
     C = torch.zeros_like(pm)
-    logs = torch.zeros_like(pm)
+    logs = torch.zeros_like(pm, dtype=torch.float64)   # f64 ledgers
     fM, fI, fled = [None], [None], [None]
     for i in range(1, Ld + 1):
         e = emis(codes[:, i - 1])
@@ -103,17 +115,18 @@ def _null2_chunk(bt, rows, flat, off, lds, pmove):
         N = torch.where(keep, Nn * inv, N)
         B = torch.where(keep, Bn * inv, B)
         C = torch.where(keep, Cn * inv, C)
-        logs = torch.where(keep, logs + torch.log(scale), logs)
+        logs = torch.where(keep, logs + torch.log(scale).double(), logs)
         fM.append(M)
         fI.append(I)
         fled.append(logs)
-    envsc = torch.log(C.clamp(min=SCALE_FLOOR)) + torch.log(pm) + logs
+    envsc = (torch.log(C.clamp(min=SCALE_FLOOR)).double()
+             + torch.log(pm).double() + logs)
 
     bMT = pm + shift_l(bck_chain(pm.expand_as(tdd), Ab)) * tmd
     bM, bI = bMT, torch.zeros_like(bMT)
     bN = torch.zeros_like(pm)
     bC = pm.clone()
-    bled = torch.zeros_like(pm)
+    bled = torch.zeros_like(pm, dtype=torch.float64)
     useM = torch.zeros_like(bMT)
     useI = torch.zeros_like(pm)
     usetot = torch.zeros_like(pm)
@@ -136,8 +149,8 @@ def _null2_chunk(bt, rows, flat, off, lds, pmove):
             bI = torch.where(at_term, 0.0, Ii * inv)
             bN = torch.where(at_term, 0.0, bNn * inv)
             bC = torch.where(at_term, pm, bCn * inv)
-            bled = torch.where(at_term, 0.0, bled + torch.log(scale))
-        sc = torch.exp(fled[i] + bled - envsc)
+            bled = torch.where(at_term, 0.0, bled + torch.log(scale).double())
+        sc = torch.exp((fled[i] + bled - envsc).float())
         live = (i <= lds[:, None]).to(torch.float32)
         ppM = fM[i] * bM * (sc * live)
         ppI = fI[i] * bI * (sc * live)
@@ -146,19 +159,168 @@ def _null2_chunk(bt, rows, flat, off, lds, pmove):
         useI = useI + sI
         usetot = usetot + sI + ppM.sum(-1, keepdim=True)
     n2dot = torch.einsum("nk,nxk->nx", useM, em)
-    return torch.cat([envsc, useI, usetot], dim=1), n2dot
+    return torch.cat([envsc.float(), useI, usetot], dim=1), n2dot
 
 
-def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove):
-    """(scal [n, 3], n2dot [n, 128]): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+N2_NPL = (8, 16, 24, 32)            # register layouts: states per lane
+N2_WARPS = 8                         # warps per CTA (csrc/null2.cu)
+N2_XS = 8                            # floats per warp of a meeting
+N2_WS = 8                            # invariant floats per warp
+
+
+def _smem_bytes(regs: bool, G: int, Mpad: int) -> int:
+    wp = max(1, N2_WARPS // G)
+    return 4 * (2 * wp * G * N2_XS + wp * G * N2_WS
+                + (8 if regs else 3) * Mpad)
+
+
+def n2_layout(Mp: int):
+    """(layout, G warps per envelope, npl states per lane, Mpad) for a
+    bank of width Mp. Layout 0: the row in registers with the fewest
+    states per lane that G <= 8 warps cover, the transitions in shared
+    memory (narrower lanes were faster at every width measured: PERF.md,
+    null2 layouts). Layout 1 (wider models): one envelope of 8 warps
+    per CTA, its row in shared memory, the transitions in device memory."""
+    for npl in N2_NPL:
+        G = -(-Mp // (32 * npl))
+        if G <= N2_WARPS and _smem_bytes(True, G, 32 * G * npl) \
+                <= _build.SMEM_ROWS_MAX:
+            return 0, G, npl, 32 * G * npl
+    G = N2_WARPS
+    npl = -(-Mp // (32 * G))
+    Mpad = 32 * G * npl
+    if _smem_bytes(False, G, Mpad) > _build.SMEM_ROWS_MAX:
+        raise ValueError("null2 kernel: Mp %d exceeds the widest layout" % Mp)
+    return 1, G, npl, Mpad
+
+
+@dataclasses.dataclass
+class Plan:
+    """Launches of the null2 kernel over n envelopes.
+
+    cta_env: int32 [n_cta * wp], the envelope of each warp slot of each
+    CTA (-1: empty); one model per CTA, its envelopes longest first.
+    cta0: first CTA of each launch, and n_cta at the end.
+    roff: int64 [n], each envelope's first scratch row in its launch.
+    n_rows: scratch rows of each launch (the sum of its envelopes' Ld).
+    """
+    cta_env: np.ndarray
+    cta0: List[int]
+    roff: np.ndarray
+    n_rows: List[int]
+
+    @property
+    def launches(self) -> int:
+        return len(self.n_rows)
+
+
+def scratch_row_bytes(Mpad: int) -> int:
+    """Scratch bytes of one stored Forward row: M and I (f32, Mpad
+    slots each) and its f64 ledger entry."""
+    return 8 * Mpad + 8
+
+
+def plan_launches(lds, models, wp: int, row_bytes: int,
+                  budget: int) -> Plan:
+    """Group envelopes into CTAs and launches: a pure function of the
+    envelope lengths and models, the envelopes per CTA (wp), the scratch
+    bytes of one stored row and the scratch budget of a launch.
+
+    Each model's envelopes are sorted longest first (ties in input order)
+    and cut into CTAs of wp; the CTAs run longest first, so the warps of a
+    CTA share a model and end together, and the longest start first. A
+    launch takes CTAs in that order while its envelopes' rows fit the
+    budget (always at least one CTA); each envelope's rows start at the
+    prefix sum of the lengths before it in its launch."""
+    lds = np.asarray(lds, np.int64)
+    models = np.asarray(models, np.int64)
+    n = len(lds)
+    order = np.lexsort((np.arange(n), -lds, models))
+    m = models[order]
+    start = np.flatnonzero(np.r_[True, m[1:] != m[:-1]]) if n else \
+        np.zeros(0, np.int64)
+    run_of = np.cumsum(np.r_[False, m[1:] != m[:-1]]) if n else order
+    rank = np.arange(n) - start[run_of]              # place in its model
+    per_run = -(-np.diff(np.r_[start, n]) // wp)     # CTAs per model
+    cta = np.r_[0, np.cumsum(per_run)][run_of] + rank // wp
+    n_cta = int(per_run.sum()) if n else 0
+    first = np.zeros(n_cta, np.int64)
+    first[cta[rank % wp == 0]] = lds[order[rank % wp == 0]]
+    cta_order = np.argsort(-first, kind="stable")    # longest CTAs first
+    pos = np.empty(n_cta, np.int64)
+    pos[cta_order] = np.arange(n_cta)
+    slot = pos[cta] * wp + rank % wp
+    cta_env = np.full(n_cta * wp, -1, np.int32)
+    cta_env[slot] = order
+    cta_rows = np.zeros(n_cta, np.int64)
+    np.add.at(cta_rows, pos[cta], lds[order])
+    cta0, n_rows = [], []
+    rows = 0
+    for t, need in enumerate(cta_rows.tolist()):
+        if not cta0 or (rows + need) * row_bytes > budget:
+            if cta0:
+                n_rows.append(rows)
+            cta0.append(t)
+            rows = 0
+        rows += need
+    if cta0:
+        n_rows.append(rows)
+    cta0.append(n_cta)
+    # rows of each envelope: the prefix sum in slot order, less its
+    # launch's first
+    placed = cta_env[cta_env >= 0].astype(np.int64)
+    ends = np.cumsum(lds[placed])
+    launch_of = np.searchsorted(np.asarray(cta0[1:]),
+                                np.flatnonzero(cta_env >= 0) // wp,
+                                side="right")
+    base = np.r_[0, np.cumsum(n_rows)][launch_of]
+    roff = np.zeros(n, np.int64)
+    roff[placed] = ends - lds[placed] - base
+    return Plan(cta_env, cta0, roff, n_rows)
+
+
+def scratch_budget(dev, layout: int, G: int, npl: int, Mpad: int,
+                   lds: np.ndarray, row_bytes: int) -> int:
+    """Scratch bytes one launch may hold on the card.
+
+    A launch should hold at least as many envelopes as the card keeps
+    resident (SMs x CTAs per SM x envelopes per CTA), or all of them if
+    there are fewer, so that no launch runs below a full card; beyond that
+    the fewer launches the fewer tails, so the budget is every envelope's
+    rows, capped at half the memory PyTorch can still hand out (free on
+    the device plus its cached, unused blocks). Only when that cap is
+    smaller than the resident envelopes' rows does a launch hold fewer."""
+    import ctypes
+    total = int(np.asarray(lds, np.int64).sum()) * row_bytes
+    free, _ = torch.cuda.mem_get_info(dev)
+    avail = free + torch.cuda.memory_reserved(dev) \
+        - torch.cuda.memory_allocated(dev)
+    cap = avail // 2
+    per_sm = ctypes.c_int(0)
+    _build.check(_build.lib().witch_null2_ctas_per_sm(
+        layout, G, npl, Mpad, ctypes.byref(per_sm)), "null2", count=False)
+    resident = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * per_sm.value * max(1, N2_WARPS // G)
+    longest = np.sort(np.asarray(lds, np.int64))[::-1][:resident]
+    if int(longest.sum()) * row_bytes > cap:
+        warnings.warn("null2: %d resident envelopes need %d scratch bytes, "
+                      "above the %d-byte cap" % (
+                          len(longest), int(longest.sum()) * row_bytes, cap))
+    return min(total, cap)
+
+
+def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove,
+               budget: Optional[int] = None):
+    """(scal [n, 3], n2dot [n, 128]) in input order: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. Both run the
+    envelopes in plan_launches' order and launches (`budget`: scratch
+    bytes per launch; by default scratch_budget on the card, all at once
+    on the CPU)."""
     dev = bt.device
     for t in (rows, flat, off, lds, pmove):
         if t.device != dev:
             raise ValueError("bank and envelope tensors must share a device")
-    if dev.type == "cpu":
-        return null2_nats_ref(bt, rows, flat, off, lds, pmove)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError("unsupported device %s" % dev)
     if bt.K > NCODE:
         raise ValueError("alphabet wider than %d codes" % NCODE)
@@ -167,34 +329,49 @@ def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove):
     n2dot = torch.zeros((n, NCODE), dtype=torch.float32, device=dev)
     if n == 0:
         return scal, n2dot
+    lds_h = lds.cpu().numpy().astype(np.int64)
+    layout, G, npl, Mpad = n2_layout(bt.Mp)
+    wp = max(1, N2_WARPS // G)
+    row_bytes = scratch_row_bytes(Mpad)
+    if budget is None:
+        budget = (scratch_budget(dev, layout, G, npl, Mpad, lds_h, row_bytes)
+                  if dev.type == "cuda" else int(lds_h.sum()) * row_bytes)
+    plan = plan_launches(lds_h, rows.cpu().numpy(), wp, row_bytes, budget)
+    if dev.type == "cpu":
+        for a, b in zip(plan.cta0[:-1], plan.cta0[1:]):
+            ids = plan.cta_env[a * wp:b * wp]
+            ids = torch.from_numpy(ids[ids >= 0].astype(np.int64))
+            s, d = null2_nats_ref(bt, rows[ids], flat, off[ids], lds[ids],
+                                  pmove[ids])
+            scal[ids] = s
+            n2dot[ids] = d
+        return scal, n2dot
     rows = rows.to(torch.int32).contiguous()
     flat = flat.to(torch.int32).contiguous()
     off = off.to(torch.int64).contiguous()
     lds = lds.to(torch.int32).contiguous()
     pmove = pmove.to(torch.float32).contiguous()
-    Ldmax = int(lds.max().item())
-    # the four working rows: shared memory, or a device slice per CTA
-    in_dev = 4 * bt.Mp * 4 > _build.SMEM_ROWS_MAX
-    per = (Ldmax + 1) * (2 * bt.Mp + 1) * 4 + (16 * bt.Mp if in_dev else 0)
-    chunk = max(1, min(n, SCRATCH_BYTES // per))
-    rows_s = torch.empty(chunk * (Ldmax + 1) * 2 * bt.Mp,
-                         dtype=torch.float32, device=dev)
-    fled_s = torch.empty(chunk * (Ldmax + 1), dtype=torch.float32,
-                         device=dev)
-    work = (torch.empty(chunk * 4 * bt.Mp, dtype=torch.float32, device=dev)
-            if in_dev else None)
+    em_t, tr_t = slot_tables(bt, G, npl)
+    cta_env = torch.from_numpy(plan.cta_env).to(dev)
+    roff = torch.from_numpy(plan.roff).to(dev)
+    most = max(plan.n_rows)
+    rows_s = torch.empty(most * 2 * Mpad, dtype=torch.float32, device=dev)
+    fled_s = torch.empty(most, dtype=torch.float64, device=dev)
     lib = _build.lib()
     stream = _build.stream_ptr(dev)
-    for c0 in range(0, n, chunk):
-        m = min(chunk, n - c0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for a, b in zip(plan.cta0[:-1], plan.cta0[1:]):
         rc = lib.witch_null2(
-            bt.em.data_ptr(), bt.trans.data_ptr(), rows[c0:].data_ptr(),
-            flat.data_ptr(), off[c0:].data_ptr(), lds[c0:].data_ptr(),
-            pmove[c0:].data_ptr(), rows_s.data_ptr(), fled_s.data_ptr(),
-            scal[c0:].data_ptr(), n2dot[c0:].data_ptr(),
-            work.data_ptr() if in_dev else None, m, bt.Mp, bt.K, Ldmax,
-            stream)
+            em_t.data_ptr(), tr_t.data_ptr(), rows.data_ptr(),
+            flat.data_ptr(), off.data_ptr(), lds.data_ptr(),
+            pmove.data_ptr(), cta_env[a * wp:].data_ptr(), roff.data_ptr(),
+            rows_s.data_ptr(), fled_s.data_ptr(), scal.data_ptr(),
+            n2dot.data_ptr(), b - a, bt.K, layout, G, npl, Mpad, stream)
         _build.check(rc, "null2")
+    ev[1].record()
+    ev[1].synchronize()
+    _build.KERNEL_MS["null2"] += ev[0].elapsed_time(ev[1])
     return scal, n2dot
 
 

@@ -319,9 +319,14 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
     from .hmm.profile import configure
     from .native import _domaindef
 
-    # the gate's flank rows come from the native AVX-512 scan (raises on
-    # an engine built without AVX-512)
-    flank_fn = _domaindef.flank_targets_simd
+    # the gate's flank rows come from the native AVX-512 scan; the port
+    # has no host fallback for it
+    flank_fn = getattr(_domaindef, "flank_targets_simd", None)
+    if flank_fn is None:
+        raise RuntimeError(
+            "the reporting gate needs a host CPU with AVX-512: the native "
+            "engine was built without flank_targets_simd, and witch_tpu_torch "
+            "has no fallback for it")
     items = sorted(by_j.items())
     allargs, flank_rows, codes_by, fwd64_by = {}, {}, {}, {}
 
@@ -385,10 +390,12 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
             consume(j, by_j[j], out, t)
     Configs.runtime(
         "  scoring: device gate %d pairs (%d env on device, %d multidomain "
-        "host, %d margin + %d boundary re-evals) prep %.2fs device %.2fs "
-        "multi %.2fs total (s): %f"
+        "host, %d margin + %d boundary re-evals) prep %.2fs null2 %.2fs "
+        "(kernel %.1f ms, %d launches) multi host %.2fs wait %.2fs "
+        "total (s): %f"
         % (n_pairs, stats["entries"], stats["multi"], stats["guard_margin"],
-           n_pend, t_prep - t0, stats["t_device"], stats["t_multi"],
+           n_pend, t_prep - t0, stats["t_null2"], stats["null2_kernel_ms"],
+           stats["null2_launches"], stats["t_multi_host"], stats["t_wait"],
            time.time() - t0))
 
 

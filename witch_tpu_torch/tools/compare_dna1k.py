@@ -9,9 +9,9 @@ The data is scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
 The trees run in turns A B B A, each in its own process, so the timings
 come from one call on one card. Per run it prints one JSON line: the
 tree, the wall time, and the runtime_breakdown.txt lines of the device
-Forward scoring and the total; then one JSON line comparing every run's
-aligned.fasta and aligned.masked.fasta with the first run's, naming any
-row that differs.
+Forward scoring, the device gate and the total; then one JSON line
+comparing every run's aligned.fasta and aligned.masked.fasta with the
+first run's, naming any row that differs.
 """
 
 import argparse
@@ -80,7 +80,7 @@ def main():
         lines = [ln.split("\t", 1)[-1].strip() for ln in open(
             os.path.join(outdir, "runtime_breakdown.txt"))
             if "device Forward" in ln or "Total runtime" in ln
-            or "all-vs-all Forward" in ln]
+            or "all-vs-all Forward" in ln or "device gate" in ln]
         print(json.dumps(dict(tree=t, run=i, wall_s=wall, lines=lines,
                               card=card)), flush=True)
         outs.append(outdir)
