@@ -21,13 +21,17 @@ Phases:
                 n2dot within 1e-4 relative (|d| / max(|ref|, 1e-2));
                 assembled sbias/senv within 2e-3 bits and sbsum 5e-3 of
                 native evaluate_targets_rows, gate integers exact
-       oa       the amino500 alignment pairs + 256 bench_assets pairs:
+       oa       the amino500 alignment pairs + 256 bench_assets pairs
+                (Mp 416, 1,312 and 2,720: the warp-per-pair kernel):
                 identical columns on every pair with margin >= 2e-3, vs
-                plain and vs native posterior_oa_pair;
+                plain and vs native posterior_oa_pair, finite margins
+                within 1e-4 of plain; (4e) dna1k's pairs (Mp 1,440 and
+                1,568): ms, launches and bounds over all of them, and a
+                seeded sample (the 64 longest, 64 at random) held so;
        wide     (2e) a bank of a 8,000-state and a 16,384-state model
-                (Mp 8,096 and 16,416: OA and null2 rows in device memory,
-                forward's second layout): all four kernels with the
-                tolerances above, vs plain and native;
+                (Mp 8,096 and 16,416: OA's first version, null2 rows in
+                device memory, forward's second layout): all four
+                kernels with the tolerances above, vs plain and native;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
      the same with --full-search-results 1 (600/600 rows, the flank
@@ -62,8 +66,10 @@ Phases:
      its plain version within 1e-4 relative;
   6. {"kernels": [...]} JSON (each kernel's launches on the main path,
      error, ms and plain ms, and its bound: the larger of its operations
-     at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, and its
-     bytes, inputs read once and outputs written once, at 3.35 TB/s), the
+     at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
+     at 34 TFLOP/s, its f64 rate, and its bytes, inputs read once and
+     outputs written once, at 3.35 TB/s; OA's entry also the dna1k
+     replay's and its stored rows' bound, 17 B per state-row), the
      nvidia-smi line, a check that no module of JAX or witch_tpu was
      loaded, and as the last line {"ok": true, "device": {...}}.
 
@@ -102,17 +108,23 @@ REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
 DNA1K_JAX_MIN = 1000
 JAX_DNA1K_IGNORED = ()
 DNA1K_DIAG = 20
-# bounds: H100 SXM f32 rate outside the tensor cores and HBM rate (the
-# card's published peaks); f32 operations per DP cell (model
+# bounds: H100 SXM f32 rate outside the tensor cores, f64 rate and HBM
+# rate (the card's published peaks); operations per DP cell (model
 # state x residue, at the models' own M), read off the plain versions:
 # forward 20 (src 7, M 1, I 3, delete chain 3, E sum 2, max 1, rescale
 # 3), flank 40 (that Forward and a Backward of the same count), null2 45
-# (Forward, Backward, 5 for the posterior state usage), oa 58 (Forward,
-# Backward, 4 for the posteriors, 14 for the OA DP, counted at the f32
-# rate although it runs in f64: a lower bound)
+# (Forward, Backward, 5 for the posterior state usage), oa 58 (Forward
+# and Backward 40 and the posteriors 4 at the f32 rate, the OA DP's 14 at
+# the f64 rate)
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58}
+F64_OPS_PER_CELL = {"oa": 14}
+# bytes of stored scratch per state-row, at the kernel's padded width:
+# null2 16 (Forward M and I written and read back), oa 17 (Backward bM and
+# bI written and read back, the pointer byte written)
+ROW_BYTES = {"null2": 16, "oa": 17}
 
 
 def say(*a):
@@ -135,7 +147,9 @@ def smi_line():
 
 def bound_ms(name, cells, nbytes):
     """(least ms for the work, "operations" or "bytes")."""
-    t_ops = OPS_PER_CELL[name] * cells / F32_OPS_PER_S * 1e3
+    f64 = F64_OPS_PER_CELL.get(name, 0)
+    t_ops = ((OPS_PER_CELL[name] - f64) / F32_OPS_PER_S
+             + f64 / F64_OPS_PER_S) * cells * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -537,13 +551,24 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
           and dss < 5e-3, "gate assembly vs native evaluate_targets_rows")
 
 
+def oa_kernel_ms(bt, pk, Ldmax, reps=3):
+    """The OA kernels' own CUDA-event ms per oa_nats call (mean of reps
+    after a warm-up; _build.KERNEL_MS, without the wrapper's host work),
+    and the whole call's."""
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.oa import oa_nats
+    k0 = _build.KERNEL_MS["oa"]
+    call = cuda_ms(lambda: oa_nats(bt, *pk, Ldmax=Ldmax), reps)
+    return (_build.KERNEL_MS["oa"] - k0) / (reps + 1), call
+
+
 def oa_compare(bt, pairs_rows, Ldmax, label):
     """Kernel vs plain on (bank_row, codes) pairs of one bank. Returns
     (kernel cols list, margins, oks, n above-guard mismatches vs plain,
     max |dmargin|, kernel ms, plain ms)."""
     import numpy as np
     import torch
-    from witch_tpu_torch.ops.oa import oa_nats, oa_ref, pack_pairs
+    from witch_tpu_torch.ops.oa import oa_layout, oa_nats, oa_ref, pack_pairs
     pk = pack_pairs(bt, pairs_rows)
     ck, sk = oa_nats(bt, *pk, Ldmax=Ldmax)
     cp, sp = oa_ref(bt, *pk)
@@ -559,11 +584,19 @@ def oa_compare(bt, pairs_rows, Ldmax, label):
             bad += 1
     fin = np.isfinite(sk[:, 0]) & np.isfinite(sp[:, 0])
     dm = float(np.abs(sk[fin, 0] - sp[fin, 0]).max()) if fin.any() else 0.0
-    ms = cuda_ms(lambda: oa_nats(bt, *pk, Ldmax=Ldmax), 3)
+    ms, call = oa_kernel_ms(bt, pk, Ldmax)
     plain_ms = cuda_ms(lambda: oa_ref(bt, *pk), 1)
-    say("  %s: %d pairs, kernel %.2f ms, plain %.2f ms, |dmargin| %.3g"
-        % (label, len(pairs_rows), ms, plain_ms, dm))
+    say("  %s (layout, G, npl, Mpad %s): %d pairs, kernel %.2f ms (call "
+        "%.2f), plain %.2f ms, |dmargin| %.3g"
+        % (label, oa_layout(bt.Mp), len(pairs_rows), ms, call, plain_ms,
+           dm))
     return cols, sk[:, 0], sk[:, 1] > 0.5, bad, dm, ms, plain_ms
+
+
+def oa_padded_cells(bt, lst):
+    """DP cells at the OA kernel's padded width (its stored rows)."""
+    from witch_tpu_torch.ops.oa import oa_layout
+    return float(sum(len(c) for *_, c in lst)) * oa_layout(bt.Mp)[3]
 
 
 def phase_oa(rec, banks_bench, codes, lens, dev, result):
@@ -574,7 +607,7 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
     say("== phase 2c: oa kernel vs plain and native")
     bad_p = bad_n = 0
     dmax = ms = plain_ms = 0.0
-    cells = nbytes = 0.0
+    cells = nbytes = padc = 0.0
     n = 0
     for banks_t, bank_row, pairs, Ldmax in rec.oa:
         by_bank = {}
@@ -598,25 +631,37 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
             bt = banks_t[bi]
             cells += float(sum(len(c) * int(bt.M[r]) for _, r, c in lst))
             nbytes += table_bytes(bt) + sum(8 * len(c) + 8 for *_, c in lst)
-    check(n > 0 and bad_p == 0 and bad_n == 0,
+            padc += oa_padded_cells(bt, lst)
+    check(n > 0 and bad_p == 0 and bad_n == 0 and dmax <= 1e-4,
           "oa amino500: %d pairs, above-guard mismatches vs plain %d, "
-          "vs native %d" % (n, bad_p, bad_n))
+          "vs native %d; finite margins within %.3g <= 1e-4 of plain"
+          % (n, bad_p, bad_n, dmax))
+    result["oa"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                        pairs=n, cells=cells, bytes=nbytes,
+                        rows_bytes_ms=ROW_BYTES["oa"] * padc
+                        / HBM_BYTES_PER_S * 1e3)
 
-    # 256 bench_assets pairs (DNA, Mp up to 2,720)
+    # 256 bench_assets pairs (DNA, Mp 1,312 and 2,720)
     rng = np.random.default_rng(7)
     nb = 0
     bad_b = bad_bn = 0
+    dmb = ms_b = plain_b = cells_b = nbytes_b = padc_b = 0.0
     for bi, b in enumerate(banks_bench):
         k = 128
         hs = rng.integers(0, b.H, k)
         qs = rng.integers(0, len(lens), k)
         pr = [(int(h), np.ascontiguousarray(codes[q, :lens[q]]))
               for h, q in zip(hs, qs)]
+        bt = bank_to_torch(b, dev)
         cols, mg, ok, bad, dm, t_k, t_p = oa_compare(
-            bank_to_torch(b, dev), pr, int(lens.max()),
-            "bench bank %d" % bi)
-        dmax = max(dmax, dm)
+            bt, pr, int(lens.max()), "bench bank %d" % bi)
+        dmb = max(dmb, dm)
         bad_b += bad
+        ms_b += t_k
+        plain_b += t_p
+        cells_b += float(sum(len(c) * int(bt.M[h]) for h, c in pr))
+        nbytes_b += table_bytes(bt) + sum(8 * len(c) + 8 for _, c in pr)
+        padc_b += oa_padded_cells(bt, pr)
         for t, (h, c) in enumerate(pr):
             a = native_args_from_bank(b, h)
             d = [np.ascontiguousarray(
@@ -627,12 +672,91 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
                     cols[t], ref):
                 bad_bn += 1
         nb += len(pr)
-    check(bad_b == 0 and bad_bn == 0,
+    check(bad_b == 0 and bad_bn == 0 and dmb <= 1e-4,
           "oa bench_assets: %d pairs, above-guard mismatches vs plain %d, "
-          "vs native %d" % (nb, bad_b, bad_bn))
-    result["oa"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
-                        pairs=n, cells=cells, bytes=nbytes)
+          "vs native %d; finite margins within %.3g <= 1e-4 of plain"
+          % (nb, bad_b, bad_bn, dmb))
+    b_ms, b_by = bound_ms("oa", cells_b, nbytes_b)
+    result["oa_bench"] = dict(max_abs_err=dmb, ms=ms_b, plain_ms=plain_b,
+                              pairs=nb, bound_ms=b_ms,
+                              rows_bytes_ms=ROW_BYTES["oa"] * padc_b
+                              / HBM_BYTES_PER_S * 1e3)
 
+
+def phase_oa_path(rec, dev, result, label, key, sample=64):
+    """The OA kernel on the pairs a main path gave it (its first recorded
+    oa_columns call since rec.clear(); validate_oa's sample comes after
+    it): ms and launches over all of them, and both bounds;
+    a seeded sample (the `sample` longest pairs and `sample` more at
+    random) against plain and native above the guard, margins within
+    1e-4 of plain."""
+    import numpy as np
+    import torch
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.oa import oa_layout, oa_nats, pack_pairs
+
+    say("== phase " + label)
+    banks_t, bank_row, pairs, Ldmax = rec.oa[0]
+    by_bank = {}
+    for p, (idx, c) in enumerate(pairs):
+        bi, row = bank_row[int(idx)]
+        by_bank.setdefault(bi, []).append((p, row, c))
+    ms = cells = nbytes = padc = 0.0
+    launches = 0
+    for bi, lst in sorted(by_bank.items()):
+        bt = banks_t[bi]
+        pk = pack_pairs(bt, [(r, c) for _, r, c in lst])
+        n0 = _build.LAUNCHES["oa"]
+        oa_nats(bt, *pk, Ldmax=Ldmax)
+        torch.cuda.synchronize()
+        nl = _build.LAUNCHES["oa"] - n0
+        t, call = oa_kernel_ms(bt, pk, Ldmax)
+        launches += nl
+        ms += t
+        cells += float(sum(len(c) * int(bt.M[r]) for _, r, c in lst))
+        nbytes += table_bytes(bt) + sum(8 * len(c) + 8 for *_, c in lst)
+        padc += oa_padded_cells(bt, lst)
+        say("  bank %d Mp %d (layout, G, npl, Mpad %s): %d pairs, %d "
+            "launches, kernel %.2f ms (call %.2f)"
+            % (bi, bt.Mp, oa_layout(bt.Mp), len(lst), nl, t, call))
+    b_ms, b_by = bound_ms("oa", cells, nbytes)
+    rows_ms = ROW_BYTES["oa"] * padc / HBM_BYTES_PER_S * 1e3
+    say("  %d pairs, %d launches: kernel %.2f ms; %.4g DP cells: bound "
+        "%.3f ms (%s), stored rows 17 B per state-row %.3f ms"
+        % (len(pairs), launches, ms, cells, b_ms, b_by, rows_ms))
+    lens = np.array([len(c) for _, c in pairs])
+    order = np.argsort(-lens, kind="stable")
+    pick = set(order[:sample].tolist())
+    rest = order[sample:]
+    if len(rest):
+        rng = np.random.default_rng(1017)
+        pick |= set(rng.choice(rest, min(sample, len(rest)),
+                               replace=False).tolist())
+    bad_p = bad_n = 0
+    dmax = plain_ms = 0.0
+    aligner = REC_ALIGNER[0]
+    for bi, lst in sorted(by_bank.items()):
+        sub = [(p, r, c) for p, r, c in lst if p in pick]
+        if not sub:
+            continue
+        cols, mg, ok, bad, dm, _, t_p = oa_compare(
+            banks_t[bi], [(r, c) for _, r, c in sub], Ldmax,
+            "%s sample, bank %d" % (key, bi))
+        ref = aligner.native_columns([pairs[p] for p, _, _ in sub])
+        bad_p += bad
+        bad_n += sum(1 for t in range(len(sub))
+                     if mg[t] >= OA_GUARD and ok[t]
+                     and not np.array_equal(cols[t], ref[t]))
+        dmax = max(dmax, dm)
+        plain_ms += t_p
+    check(launches > 0 and bad_p == 0 and bad_n == 0 and dmax <= 1e-4,
+          "oa on %s: %d sampled pairs of %d, above-guard mismatches vs "
+          "plain %d, vs native %d; finite margins within %.3g <= 1e-4 of "
+          "plain" % (key, len(pick), len(pairs), bad_p, bad_n, dmax))
+    result["oa_" + key] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                               launches=launches, pairs=len(pairs),
+                               cells=cells, bound_ms=b_ms, bound_by=b_by,
+                               rows_bytes_ms=rows_ms)
 
 
 def phase_dna(tmp, rec):
@@ -1016,9 +1140,13 @@ def phase_wide(rec, dev, result):
         dmax = max(dmax, dm)
         ms, plain_ms = t_k, t_p          # the widest model's times
         mps.append(banks_t[bi].Mp)
-    check(bad_p == 0 and bad_n == 0,
-          "oa wide: %d pairs, above-guard mismatches vs plain %d, vs "
-          "native %d" % (sum(map(len, queries)), bad_p, bad_n))
+    from witch_tpu_torch.ops.oa import oa_layout
+    check(bad_p == 0 and bad_n == 0 and dmax <= 1e-4
+          and all(oa_layout(m)[0] == 1 for m in mps),
+          "oa wide (the first version, layout 1 at Mp %s): %d pairs, "
+          "above-guard mismatches vs plain %d, vs native %d; finite margins "
+          "within %.3g <= 1e-4 of plain"
+          % (mps, sum(map(len, queries)), bad_p, bad_n, dmax))
     # forward and flank keep 3 rows in shared memory (197 KB at Mp 16,416)
     import torch
     from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
@@ -1404,6 +1532,8 @@ def main():
         paths["dna1k"] = timed(phase_dna, tmp, rec)
         timed(phase_forward_path, list(rec.fwd), dev, result, "4d_dna1k",
               100)
+        timed(phase_oa_path, rec, dev, result, "4e: oa kernel on dna1k's "
+              "alignment pairs", "4e_dna1k")
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
         paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
@@ -1434,15 +1564,20 @@ def main():
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                  library_ms=None, cells=r["cells"])
+        # OA's entry also carries its stored rows' bound and, per tag,
+        # the pairs and which bound binds
+        extras = ("bound_ms", "envelopes", "launches", "rows_bytes_ms")
+        if name == "oa":
+            k["rows_bytes_ms"] = r["rows_bytes_ms"]
+            extras += ("bound_by", "pairs")
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
-                    "4d_dna1k", "scenario_a"):
+                    "4d_dna1k", "4e_dna1k", "bench", "scenario_a"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],
                           "plain_ms_" + tag: r2["plain_ms"],
                           "max_abs_err_" + tag: r2["max_abs_err"]})
-                for extra in ("bound_ms", "envelopes", "launches",
-                              "rows_bytes_ms"):
+                for extra in extras:
                     if extra in r2:
                         k["%s_%s" % (extra, tag)] = r2[extra]
                 k["max_abs_err"] = max(k["max_abs_err"], r2["max_abs_err"])

@@ -140,3 +140,58 @@ def test_oa_kernel_wide_models_match_plain(M):
         if sk[t, 0] >= GUARD:
             np.testing.assert_array_equal(ck[off[t]:off[t] + len(c)],
                                           cp[off[t]:off[t] + len(c)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [384, 1408, 1536, 2688, 3968, 4000])
+def test_oa_kernel_widths_match_plain(M):
+    """Mp 416, 1,440, 1,568 and 2,720 (the main paths' and the bench
+    grid's widths) and both sides of the dispatch boundary (Mp 4,000 on
+    the warp-per-pair kernel, 4,128 on the first version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu_torch.ops.oa import oa_layout, oa_nats, oa_ref, pack_pairs
+    bank, pairs = _wide_case(M, 9)
+    bt = bank_to_torch(bank, "cuda")
+    layout = oa_layout(bt.Mp)[0]
+    assert layout == (0 if bt.Mp <= 4096 else 1)
+    pk = pack_pairs(bt, pairs)
+    ck, sk = oa_nats(bt, *pk, Ldmax=200)
+    cp, sp = oa_ref(bt, *pk)
+    ck, sk, cp, sp = (x.cpu().numpy() for x in (ck, sk, cp, sp))
+    off = pk[3].cpu().numpy()
+    np.testing.assert_array_equal(sk[:, 1], sp[:, 1])
+    assert sk[:, 1].all()
+    for t, (_, c) in enumerate(pairs):
+        if sk[t, 0] >= GUARD:
+            np.testing.assert_array_equal(ck[off[t]:off[t] + len(c)],
+                                          cp[off[t]:off[t] + len(c)])
+    fin = np.isfinite(sp[:, 0])
+    np.testing.assert_array_equal(np.isfinite(sk[:, 0]), fin)
+    assert np.abs(sk[fin, 0] - sp[fin, 0]).max(initial=0.0) < 1e-4
+    # the total score Z (nats) from the Backward: f32 sums in another order
+    np.testing.assert_allclose(sk[:, 2], sp[:, 2], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_oa_kernel_split_launches_agree():
+    """A small scratch budget cuts the pairs into one launch per CTA; the
+    results equal one launch's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.oa import oa_nats, pack_pairs
+    rng = np.random.default_rng(13)
+    banks = build_banks(_cores(rng), indices=[0, 1, 2], uniform=True)
+    bt = bank_to_torch(banks[0], "cuda")
+    pairs = [(int(rng.integers(0, bt.H)),
+              rng.integers(0, 4, int(rng.integers(20, 90))).astype(np.int32))
+             for _ in range(24)]
+    pk = pack_pairs(bt, pairs)
+    n0 = _build.LAUNCHES["oa"]
+    c1, s1 = oa_nats(bt, *pk)
+    n1 = _build.LAUNCHES["oa"]
+    c2, s2 = oa_nats(bt, *pk, budget=1)
+    n2 = _build.LAUNCHES["oa"]
+    assert n1 - n0 == 1 and n2 - n1 > 1
+    assert torch.equal(c1, c2) and torch.equal(s1, s2)

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import _build
 from .config import Configs
 from .device import bank_to_torch
 from .ensemble import Ensemble
@@ -118,7 +119,10 @@ class DeviceAligner:
         if not pairs:
             return []
         t0 = time.time()
+        k_ms, k_n = _build.KERNEL_MS["oa"], _build.LAUNCHES["oa"]
         cols, margins, oks = self.device_columns(pairs, Ldmax)
+        k_ms = _build.KERNEL_MS["oa"] - k_ms
+        k_n = _build.LAUNCHES["oa"] - k_n
         t1 = time.time()
         redo = [p for p in range(len(pairs))
                 if not oks[p] or margins[p] < OA_GUARD]
@@ -127,9 +131,9 @@ class DeviceAligner:
             for p, v in zip(redo, fixed):
                 cols[p] = v
         Configs.runtime(
-            "  align: %d pairs device posterior+OA %.2fs (%d below-guard "
-            "native re-aligns) (s): %f"
-            % (len(pairs), t1 - t0, len(redo), time.time() - t0))
+            "  align: %d pairs device posterior+OA %.2fs (kernel %.2f ms, "
+            "%d launches; %d below-guard native re-aligns) (s): %f"
+            % (len(pairs), t1 - t0, k_ms, k_n, len(redo), time.time() - t0))
         return cols
 
 

@@ -1,7 +1,8 @@
-// Shared device helpers for the profile-HMM kernels. oa.cu and flank.cu
-// use the block-wide row helpers below; forward.cu and null2.cu run a
-// warp per instance and take only the constants, the lane-slot row
-// (LaneRow), pair_barrier and set_smem from here.
+// Shared device helpers for the profile-HMM kernels. flank.cu and oa.cu's
+// first version use the block-wide row helpers below; forward.cu, null2.cu
+// and oa.cu's warp-per-pair kernel take only the constants, the lane-slot
+// row (LaneRow), po2_scale, fresh_zero, pair_barrier and set_smem from
+// here.
 //
 // The block-wide kernels run one CTA of NT threads per DP instance (a
 // query-model pair or an envelope). The model-state axis k in [0, Mp) is
@@ -287,7 +288,8 @@ static __device__ __forceinline__ void scale_rows(float *a, float *b, float *c,
 }
 
 // Lane-slot layout of the warp-per-instance kernels (forward.cu,
-// null2.cu): an instance's row of Mpad = 32 G npl states is cut into
+// null2.cu; oa.cu keeps its rows in k order and takes only LaneRow's
+// registers): an instance's row of Mpad = 32 G npl states is cut into
 // contiguous chunks of npl states, one per lane of its G warps; state
 // k = (g*32 + lane)*npl + j lives at slot (j*G + g)*32 + lane, so a warp's
 // access to its j-th states touches 32 consecutive floats. LaneRow holds
@@ -315,6 +317,17 @@ template <> struct LaneRow<0> {          // shared memory, runtime npl
     __device__ __forceinline__ float &I(int j) { return i[j * S]; }
     __device__ __forceinline__ float &U(int j) { return u[j * S]; }
 };
+
+// A zero the compiler cannot see through, taken once per row and added to
+// every transition index (null2.cu, oa.cu): a row's transition reads then
+// go to shared memory instead of being held in registers across rows
+// (held, null2's took 243 registers at 16 states per lane, one CTA per
+// SM; re-read, 128).
+static __device__ __forceinline__ int fresh_zero() {
+    int z;
+    asm volatile("mov.u32 %0, 0;" : "=r"(z));
+    return z;
+}
 
 static __device__ __forceinline__ void pair_barrier(int id, int nthreads) {
     asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");

@@ -65,16 +65,6 @@
 #define N2_XS 8        // floats per warp in a meeting's exchange
 #define N2_WS 8        // loop-invariant floats per warp
 
-// A zero the compiler cannot see through, taken once per row and added to
-// every transition index: a row's transition reads then go to shared
-// memory instead of being held in registers across rows (held, they took
-// 243 registers at 16 states per lane, one CTA per SM; re-read, 128).
-static __device__ __forceinline__ int fresh_zero() {
-    int z;
-    asm volatile("mov.u32 %0, 0;" : "=r"(z));
-    return z;
-}
-
 template <int NPL>
 __global__ void __launch_bounds__(N2_THREADS)
     null2_kernel(const float *__restrict__ em_t, const float *__restrict__ tr_t,

@@ -1,19 +1,24 @@
 // Fused unihit posterior decoding + optimal-accuracy (OA) alignment +
-// traceback, one CTA per (model, query) pair.
+// traceback per (model, query) pair, in two kernels chosen by the bank
+// width alone (ops/oa.py:oa_layout): a warp-per-pair kernel for Hopper
+// (oa_warp_kernel, Mp up to 4,096) and the first version, one CTA per
+// pair (oa_kernel, wider models up to the 16,384-state cap).
 //
 // Replaces: witch_tpu/ops/pallas_oa.py:_oa_kernel (the TPU kernel
 // reached from oa_columns_device).
 //
+// Both compute, per pair, what the plain version (ops/oa.py:oa_ref)
+// computes:
 //   pass A  Backward from the terminal row L down to row 0 with exact
-//           power-of-two rescaling; every row (bM, bI and the bN, bC,
-//           exponent specials) goes to a device scratch buffer; row 0
+//           power-of-two rescaling; rows 1..L (bM, bI and the bN, bC,
+//           exponent specials) go to a device scratch buffer; row 0
 //           gives the total score Z.
 //   pass B  Forward with power-of-two rescaling; per row the posteriors
 //           ppM/ppI/ppN/ppC (f32, as on the TPU) feed the OA DP
 //           (witch_tpu/hmm/align_ref.py:oa_fill semantics), accumulated
 //           in native f64; traceback pointers (pm 2 bits, pi 1 bit, pd 1
-//           bit) go to a [L, Mp] byte plane in device memory, per-row E
-//           and C decisions to two small arrays.
+//           bit) go to a byte plane in device memory, per-row E and C
+//           decisions to two small arrays.
 //   pass C  first-max-wins traceback (align_ref.oa_trace order) walked
 //           by one thread; columns written in place.
 //
@@ -24,22 +29,60 @@
 // over k (best minus second best, +inf on exact ties), the E choice
 // between M and D at the argmax, and the C loop-versus-E choice.
 //
-// What bounds it on an H100: two sequential DP sweeps of L rows with
-// block barriers between rows (latency), plus ~(8 + 1) * Mp bytes of
-// device traffic per row (Backward rows written then read, pointers
-// written), ~12 MB per pair at L = 448, Mp = 2816. The wrapper runs a
-// chunk of pairs per launch so that scratch stays at a few GB.
+// What bounds it on an H100: per DP cell (model state x query row) the
+// Forward and Backward take ~40 f32 operations, the posteriors 4, the OA
+// DP 14 f64 operations (34 TFLOP/s against 67 for f32); and the stored
+// Backward rows: 17 B per state-row (bM and bI written and read back
+// once, the pointer byte written). The rows of the pairs in flight fit
+// the 50 MB L2 only for short pairs, so at dna1k's widths (Mp 1,440,
+// ~500 rows) those bytes go to HBM at 3.35 TB/s. The first version sat
+// far above both: one CTA of 256 threads per pair crossed a dozen CTA
+// barriers per row, so its time was barrier latency per row.
 //
-// Design: f32 odds rows and f64 OA rows (36 * Mp bytes, ~100 KB at
-// Mp = 2816) updated in place as in forward.cu, in shared memory up to
-// Mp ~6,400; for wider models (up to the 16,384-state cap) the wrapper
-// passes `rows_g` and each CTA keeps them in its own slice of that
-// device buffer (L1/L2-cached). The layout is a template parameter, so
-// the shared-memory instance addresses its rows as shared memory (a
-// pointer chosen at run time would make every row access a generic
-// one); no checkpoint/recompute (the TPU's
-// answer to a small VMEM); f64 OA accumulators instead of the TPU's
-// double-float pairs.
+// First version (oa_kernel): f32 odds rows and f64 OA rows (36 * Mp
+// bytes, ~100 KB at Mp = 2816) updated in place as in forward.cu, in
+// shared memory up to Mp ~6,400; for wider models (up to the 16,384-state
+// cap) the wrapper passes `rows_g` and each CTA keeps them in its own
+// slice of that device buffer (L1/L2-cached). The layout is a template
+// parameter, so the shared-memory instance addresses its rows as shared
+// memory (a pointer chosen at run time would make every row access a
+// generic one); f64 OA accumulators instead of the TPU's double-float
+// pairs. Scratch is sized by the longest query for every pair.
+//
+// Warp-per-pair kernel (oa_warp_kernel), the design of null2.cu:
+// - A pair's row of Mpad = 32 G npl states lives in registers, npl
+//   consecutive states per lane, G warps per pair (G <= 8): f32 Forward M,
+//   I and outflow U, and f64 OA oM, oI, oD. A CTA holds 8 / G pairs of one
+//   model, whose transitions it copies into shared memory once (as float4s
+//   of a lane's states, consecutive lanes on consecutive float4s) and
+//   re-reads every row (fresh_zero). Emissions and the stored rows are in
+//   k order, so a lane reads or writes its states as npl / 4 float4s and a
+//   warp 1 KB at a time: vector accesses at fixed offsets, where a
+//   per-state stride spent more instructions on addresses than on the DP.
+// - Pass A is null2's Backward, pipelined one row behind its rescale
+//   (exact here: the scale is a power of two), storing each scaled row and
+//   its bN, bC and exponent ledger beside it; one meeting a row.
+// - Pass B is null2's Forward (one meeting a row carries the delete
+//   chain, the E sum, the max and the outflow across warps), then from
+//   the stored row, loaded before the meeting, the posteriors and the OA
+//   M and I cells: oX[k-1] of the previous row comes from the lane's
+//   previous slot, the lane below (a shuffle) or the warp below (its
+//   last state, carried by the same meeting). D is a prefix max: within
+//   the lane, a warp scan, and across warps a second meeting. The E
+//   argmax (first index, tie count, second best, M at the argmax) is a
+//   warp reduction taken in the next row, beside its Forward (the row's
+//   oM and oD are still in the registers there); across warps it rides
+//   on that row's first meeting, since only oC, the margin and the row's
+//   E/C decisions take it. So the warps of a pair meet at most twice a row, at a named
+//   barrier of their own threads, never the whole CTA.
+// - Pointers: a lane's npl bytes (its consecutive states) go out as one
+//   word, so the plane is row-major in k ([row][Mpad], ptr_at). The
+//   traceback is a second kernel, one thread per pair (oa_trace_kernel):
+//   inside the fill, one lane walking dependent loads held its CTA.
+// - Scratch: each pair's rows at its own offset, sized by its own length;
+//   the wrapper cuts the launches by the scratch they need
+//   (ops/plan.py:plan_launches), pairs of one model per CTA, longest
+//   first.
 
 #include <float.h>
 #include <math.h>
@@ -352,6 +395,850 @@ __global__ void oa_kernel(const float *__restrict__ em,
     stat[(size_t)p * 4 + 3] = (float)steps;
 }
 
+// ======================= warp-per-pair kernel =========================
+
+#define OA_THREADS 256
+#define OA_XS 8        // floats per warp in a Backward or Forward meeting
+#define OA_XD 8        // doubles per warp in the OA part of a meeting
+#define OA_WS 8        // loop-invariant floats per warp
+
+// Byte of the pointer plane for (row, state k): a lane's npl consecutive
+// states go out as one word, so the plane is row-major in k. Mirrored by
+// ops/oa.py:ptr_at, which the plain traceback uses.
+static __device__ __forceinline__ size_t ptr_at(int row, int k, int Mpad) {
+    return (size_t)row * Mpad + k;
+}
+
+// The E-state argmax of a row so far: best value r and its first state k,
+// the count n of states at r, the best value s2 below r (NEGD if none),
+// and M at k. Merging is associative and commutative, so any order of
+// warps gives the plain version's result.
+struct EBest {
+    double r, s2, mxk;
+    int k, n;
+};
+
+static __device__ __forceinline__ void ebest_merge(EBest &a, double r, int k, int n,
+                                                   double s2, double mxk) {
+    if (r > a.r) {
+        a.s2 = fmax(fmax(a.s2, a.r), s2);
+        a.r = r;
+        a.k = k;
+        a.n = n;
+        a.mxk = mxk;
+    } else if (r == a.r) {
+        a.s2 = fmax(a.s2, s2);
+        a.n += n;
+        if (k < a.k) {
+            a.k = k;
+            a.mxk = mxk;
+        }
+    } else {
+        a.s2 = fmax(a.s2, r);
+    }
+}
+
+// A warp's E argmax from its lanes' states (cE = max(M, D) on 1..Mm),
+// without branches: the warp's best value first, then against it the
+// count, the best value below and the first state (and M there).
+template <int NPL>
+static __device__ __forceinline__ EBest warp_ebest(const double (&oM)[NPL],
+                                                   const double (&oD)[NPL],
+                                                   int kb, int Mm, double rl) {
+    const int lane = threadIdx.x & 31;
+    double r = rl;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) r = fmax(r, __shfl_xor_sync(FULL_MASK, r, o));
+    int n = 0, k = 0x7fffffff;
+    double s2 = NEGD, mk = NEGD;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+        const int kk = kb + j;
+        const bool km = kk >= 1 && kk <= Mm;
+        const double cE = km ? fmax(oM[j], oD[j]) : NEGD;
+        const bool at = km && cE == r;
+        const bool first = at && k == 0x7fffffff;
+        n += at ? 1 : 0;
+        s2 = fmax(s2, (km && cE < r) ? cE : NEGD);
+        k = first ? kk : k;
+        mk = first ? oM[j] : mk;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        n += __shfl_xor_sync(FULL_MASK, n, o);
+        s2 = fmax(s2, __shfl_xor_sync(FULL_MASK, s2, o));
+        k = min(k, __shfl_xor_sync(FULL_MASK, k, o));
+    }
+    // M at the first argmax, from the lane that holds it
+    mk = __shfl_sync(FULL_MASK, mk, k == 0x7fffffff ? lane : (k / NPL) & 31);
+    return EBest{r, s2, mk, k, n};
+}
+
+static __device__ __forceinline__ float comp(const float4 &v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+static __device__ __forceinline__ void setc(float4 &v, int c, float x) {
+    if (c == 0) v.x = x;
+    else if (c == 1) v.y = x;
+    else if (c == 2) v.z = x;
+    else v.w = x;
+}
+
+// A lane's NPL consecutive states from NPL / 4 float4s `stride` apart:
+// 1 for a k-order row, the pair's lanes for the transitions in shared
+// memory.
+template <int NPL>
+static __device__ __forceinline__ void ld_row(float (&d)[NPL], const float4 *p,
+                                              int stride = 1) {
+#pragma unroll
+    for (int hh = 0; hh < NPL / 4; ++hh) {
+        const float4 q = p[hh * stride];
+        d[4 * hh] = q.x;
+        d[4 * hh + 1] = q.y;
+        d[4 * hh + 2] = q.z;
+        d[4 * hh + 3] = q.w;
+    }
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(OA_THREADS)
+    oa_warp_kernel(const float *__restrict__ em_t, const float *__restrict__ tr_t,
+                   const int32_t *__restrict__ model_of,
+                   const int32_t *__restrict__ ms,
+                   const int32_t *__restrict__ codes,
+                   const int64_t *__restrict__ code_off,
+                   const int32_t *__restrict__ lens,
+                   const float *__restrict__ pmoves,
+                   const int32_t *__restrict__ cta_pair,
+                   const int64_t *__restrict__ roff, float *__restrict__ brows,
+                   float *__restrict__ bspec, uint8_t *__restrict__ ptr,
+                   int32_t *__restrict__ rowk, uint8_t *__restrict__ rowf,
+                   float *__restrict__ stat, int K, int G, int Mpad) {
+    extern __shared__ float smem[];
+    const int S = G * 32;                  // lanes of a pair
+    const int WP = blockDim.x / S;         // pairs in this CTA
+    const int WG = WP * G;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int p = warp / G, g = warp - p * G;
+    const int pr = cta_pair[(size_t)blockIdx.x * WP + p];
+    // the plan fills a CTA's first slot and gives all its slots one model
+    const int h = model_of[cta_pair[(size_t)blockIdx.x * WP]];
+    float *sXB = smem + 8 * Mpad;          // pass A: [2][WP][G][OA_XS]
+    float *sW = sXB + 2 * WG * OA_XS;      // [WP][G][OA_WS]
+    float *sXF = sW + WG * OA_WS;          // pass B meeting 1: [WP][G][OA_XS]
+    double *sD1 = (double *)(sXF + WG * OA_XS);   // [WP][G][OA_XD]
+    double *sD2 = sD1 + WG * OA_XD;               // meeting 2: [WP][G][4]
+    {
+        const float4 *src = reinterpret_cast<const float4 *>(tr_t + (size_t)h * 8 * Mpad);
+        float4 *dst = reinterpret_cast<float4 *>(smem);
+        for (int t = threadIdx.x; t < 2 * Mpad; t += blockDim.x) dst[t] = src[t];
+        __syncthreads();                    // once per CTA, not per row
+    }
+    if (pr < 0) return;                     // the pair's warps leave together
+    const int Mm = ms[pr];
+    const int L = lens[pr];
+    const int32_t *cs = codes + code_off[pr];
+    const float pmove = pmoves[pr];
+    const float ploop = 1.0f - pmove;
+    const int slot0 = g * 32 + lane;
+    const int kb = slot0 * NPL;            // the lane's first state
+    const int MQ = Mpad / 4;               // float4s in a row
+    // transitions in shared memory: float4 (r * NPL/4 + hh) * S + slot holds
+    // states slot * NPL + 4 hh + (0..3); emissions and the stored rows in
+    // k order, a lane's states NPL / 4 consecutive float4s
+    const float4 *T4 = reinterpret_cast<const float4 *>(smem) + slot0;
+    const float4 *em4 = reinterpret_cast<const float4 *>(em_t) + (size_t)h * K * MQ + (kb >> 2);
+    const int64_t r0 = roff[pr];
+    float4 *BR4 = reinterpret_cast<float4 *>(brows) + (size_t)r0 * 2 * MQ + (kb >> 2);
+    float *BS = bspec + (size_t)r0 * 3;
+    uint8_t *PT = ptr + (size_t)r0 * Mpad;
+    int32_t *RK = rowk + r0;
+    uint8_t *RF = rowf + r0;
+    float *sWp = sW + p * G * OA_WS;
+    const int bar = 1 + p, nbar = S;
+#define Q(r, hh) T4[((r) * (NPL / 4) + (hh)) * S + zr]
+#define TLAST(r, sl) smem[(((r) * (NPL / 4) + NPL / 4 - 1) * S + (sl)) * 4 + 3]
+#define XBUF(ph) (sXB + (((ph) & 1) * WP + p) * G * OA_XS)
+    int zr = 0;                            // see fresh_zero
+    int ph = 0;                            // pass A meetings so far (parity)
+
+    // ---- invariants of the delete chains (null2.cu) ----
+    // Forward: within the lane D at its j-th state is Dloc_j + P_j c, c the
+    // chain value entering the lane, P_j = prod_{t < j} t_dd.
+    float tdd0[NPL], tdm0[NPL];
+    ld_row<NPL>(tdd0, T4 + T_DD * (NPL / 4) * S, S);
+    ld_row<NPL>(tdm0, T4 + T_DM * (NPL / 4) * S, S);
+    float Pj = 1.f, SP = 0.f, Plast = 1.f;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+        SP += Pj;
+        Plast = Pj;
+        Pj *= tdd0[j];
+    }
+    float Astep[5];
+    float xa = Pj;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+        const int s = 1 << t;
+        const float pa = __shfl_up_sync(FULL_MASK, xa, s);
+        Astep[t] = lane >= s ? xa : 0.f;
+        if (lane >= s) xa = pa * xa;
+    }
+    float ea = __shfl_up_sync(FULL_MASK, xa, 1);   // prod of earlier lanes' a
+    if (lane == 0) ea = 1.f;
+    // Backward, right to left: D[k] = c[k] + t_dd[k] D[k+1], c[k] =
+    // mne[k+1] t_dm[k] + bE; the warp's last lane takes
+    // Z = mne[s1] t_dm[k1] + t_dd[k1] D[s1] (k1 its last state, s1 the next
+    // warp's first) in place of the D entering from its right.
+    float ab = 1.f, bc = 0.f;
+#pragma unroll
+    for (int j = NPL - 1; j >= 0; --j) {
+        const float t = (lane == 31 && j == NPL - 1) ? 1.f : tdd0[j];
+        bc = 1.f + t * bc;
+        ab *= t;
+    }
+    float Bstep[5];
+    float xb = ab, bci = bc;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+        const int s = 1 << t;
+        const float pa = __shfl_down_sync(FULL_MASK, xb, s);
+        const float pb = __shfl_down_sync(FULL_MASK, bci, s);
+        const bool has = lane + s < 32;
+        Bstep[t] = has ? xb : 0.f;
+        if (has) {
+            bci = pb * xb + bci;
+            xb = xb * pa;
+        }
+    }
+    const float SBc = __shfl_down_sync(FULL_MASK, bci, 1);
+    const float SA = __shfl_down_sync(FULL_MASK, xb, 1);
+    if (G > 1) {
+        float se = ea * SP;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(FULL_MASK, se, o);
+        const float aw = __shfl_sync(FULL_MASK, xa, 31);
+        const float dl1 = __shfl_sync(FULL_MASK, ea * Plast, 31);
+        float *w = sWp + g * OA_WS;
+        if (lane == 0) {
+            w[0] = aw;                       // the warp's Forward multiplier
+            w[1] = se;
+            w[2] = dl1;
+            w[3] = xb;                       // Z multiplier of D at the first state
+            w[4] = bci;                      // its bE part
+        }
+        if (lane == 31) {
+            w[5] = tdm0[NPL - 1];
+            w[6] = tdd0[NPL - 1];
+        }
+        pair_barrier(bar, nbar);
+    }
+
+    // ---- pass A: Backward, one row behind its scale, rows 1..L stored ----
+    LaneRow<NPL> row;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+        row.M(j) = 0.f;                      // the pending row (unscaled)
+        row.I(j) = 0.f;
+    }
+    float bNu = 0.f, bCu = 0.f;              // the pending row's N and C
+    float bN = 0.f, bC = 0.f, bled = 0.f;    // scaled, and the exponent ledger
+    float mxp = 0.f;                         // the pending row's lane max
+    int cw = 0;                              // codes of 32 rows, one per lane
+    for (int i = L; i >= -1; --i) {
+        const int zr = fresh_zero();
+        // row i from the pending row i+1 (none yet when i == L, the
+        // terminal row; no new row when i == -1, where row 0 is scaled)
+        const bool fresh = (i == L), newrow = (i >= 0);
+        if (newrow && !fresh && (i == L - 1 || (i & 31) == 31))
+            cw = cs[min((i & ~31) + lane, L - 1)];
+        const int x = __shfl_sync(FULL_MASK, cw, i & 31);
+        float ev[NPL];                       // emissions of residue i
+        ld_row<NPL>(ev, em4 + (size_t)((newrow && !fresh) ? x : 0) * MQ);
+        float Bv = 0.f, bl = 0.f, m0 = 0.f, mr = 0.f;
+        if (newrow && !fresh) {
+            // mne of the pending row (unscaled), its B sum and the chain's
+            // mne part with nothing entering from the right
+            m0 = row.M(0) * ev[0];
+            mr = __shfl_down_sync(FULL_MASK, m0, 1);
+            if (lane == 31) mr = 0.f;
+            float mnu = mr;
+#pragma unroll
+            for (int hh = NPL / 4 - 1; hh >= 0; --hh) {
+                const float4 qbm = Q(T_BM, hh), qdm = Q(T_DM, hh), qdd = Q(T_DD, hh);
+#pragma unroll
+                for (int c = 3; c >= 0; --c) {
+                    const int j = 4 * hh + c;
+                    const float mj = row.M(j) * ev[j];
+                    Bv += comp(qbm, c) * mj;
+                    bl = mnu * comp(qdm, c) + comp(qdd, c) * bl;
+                    mnu = mj;
+                }
+            }
+        }
+        float bi = bl;                       // inclusive scan, right to left
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+            const int s = 1 << t;
+            const float pb = __shfl_down_sync(FULL_MASK, bi, s);
+            if (lane + s < 32) bi = pb * Bstep[t] + bi;
+        }
+        const float ebm = __shfl_down_sync(FULL_MASK, bi, 1);
+        float mxa = mxp, Bva = Bv;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            Bva += __shfl_xor_sync(FULL_MASK, Bva, o);
+            mxa = fmaxf(mxa, __shfl_xor_sync(FULL_MASK, mxa, o));
+        }
+        float *xr = nullptr;
+        if (G > 1) {
+            xr = XBUF(ph++);
+            if (lane == 0) {
+                float *xx = xr + g * OA_XS;
+                xx[0] = mxa;
+                xx[1] = Bva;
+                xx[2] = bi;                  // the warp's chain, mne part
+                xx[3] = m0;                  // mne at the warp's first state
+            }
+            pair_barrier(bar, nbar);         // the one meeting of the row
+            mxa = 0.f;
+            Bva = 0.f;
+            for (int gg = 0; gg < G; ++gg) {
+                mxa = fmaxf(mxa, xr[gg * OA_XS]);
+                Bva += xr[gg * OA_XS + 1];
+            }
+        }
+        // the pending row's scale (1 for the terminal row), a power of two
+        float iv = 1.f;
+        if (!fresh) {
+            const bool term = (i + 1 == L);
+            const float scale =
+                term ? 1.f : fmaxf(mxa, fmaxf(bNu, fmaxf(bCu, SCALE_FLOOR)));
+            float kexp;
+            po2_scale(scale, iv, kexp);
+            bN = bNu * iv;
+            bC = bCu * iv;
+            bled = term ? 0.f : bled + kexp;
+        }
+        const bool store = !fresh && i >= 0;  // the pending row is row i+1 >= 1
+        if (store && g == 0 && lane == 0) {
+            BS[(size_t)i * 3 + 0] = bN;
+            BS[(size_t)i * 3 + 1] = bC;
+            BS[(size_t)i * 3 + 2] = bled;
+        }
+        float bEn = 0.f, bNn = 0.f, bCn = 0.f;
+        if (fresh) {
+            bEn = pmove;
+            bCn = pmove;
+        } else if (newrow) {
+            bNn = bN * ploop + (Bva * iv) * pmove;
+            bCn = bC * ploop;
+            bEn = bCn;
+        }
+        // the chain across warps, right to left: Z of each warp, D and
+        // mne at the next warp's first state
+        float Zg = 0.f, Dn1 = 0.f, mn1 = 0.f;
+        if (G > 1 && newrow) {
+            for (int gg = G - 1; gg >= g; --gg) {
+                const float *w = sWp + gg * OA_WS;
+                Zg = mn1 * w[5] + w[6] * Dn1;
+                if (gg == g) break;
+                const float *xg = xr + gg * OA_XS;
+                Dn1 = iv * xg[2] + bEn * w[4] + w[3] * Zg;
+                mn1 = iv * xg[3];
+            }
+        }
+        float Dn = lane < 31 ? iv * ebm + bEn * SBc + SA * Zg : Dn1;
+        float mnext = lane < 31 ? iv * mr : mn1;
+        // scale and store the pending row, and compute row i from it
+        float4 *Rs = BR4 + (size_t)(store ? i : 0) * 2 * MQ;
+        float mxn = 0.f;
+#pragma unroll
+        for (int hh = NPL / 4 - 1; hh >= 0; --hh) {
+            const float4 qmm = Q(T_MM, hh), qmi = Q(T_MI, hh), qmd = Q(T_MD, hh),
+                         qim = Q(T_IM, hh), qii = Q(T_II, hh), qdm = Q(T_DM, hh),
+                         qdd = Q(T_DD, hh);
+            float4 sm, si;                   // the scaled pending row
+#pragma unroll
+            for (int c = 3; c >= 0; --c) {
+                const int j = 4 * hh + c;
+                const float bms = row.M(j) * iv, bis = row.I(j) * iv;
+                setc(sm, c, bms);
+                setc(si, c, bis);
+                if (newrow) {
+                    const float mj = bms * ev[j];
+                    const float Mi = bEn + mnext * comp(qmm, c) + bis * comp(qmi, c) +
+                                     Dn * comp(qmd, c);
+                    const float Ii = mnext * comp(qim, c) + bis * comp(qii, c);
+                    Dn = (mnext * comp(qdm, c) + bEn) + comp(qdd, c) * Dn;
+                    mnext = mj;
+                    row.M(j) = Mi;
+                    row.I(j) = Ii;
+                    mxn = fmaxf(mxn, Mi);
+                }
+            }
+            if (store) {
+                Rs[hh] = sm;
+                Rs[MQ + hh] = si;
+            }
+        }
+        mxp = mxn;
+        bNu = bNn;
+        bCu = bCn;
+    }
+    const float Zlog = logf(fmaxf(bN, SCALE_FLOOR)) + bled * LN2F;
+    // the specials of every row visible to the pair's warps
+    __threadfence_block();
+    if (G > 1) pair_barrier(bar, nbar);
+    else __syncwarp();
+
+    // ---- pass B: Forward, posteriors and the OA fill ----
+    double oM[NPL], oI[NPL], oD[NPL];
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+        row.M(j) = 0.f;                      // this row, unscaled
+        row.I(j) = 0.f;
+        row.U(j) = 0.f;                      // outflow of the previous row
+        oM[j] = NEGD;
+        oI[j] = NEGD;
+        oD[j] = NEGD;
+    }
+    float N = 1.f, B = pmove, C = 0.f, inv = 1.f, fled = 0.f;
+    float uin = 0.f;        // outflow of the state left of the lane's chunk
+    double oN = 0.0, oC = NEGD, mm = INFINITY;
+    double rl_prev = NEGD;   // row i-1's best E candidate in the lane
+    float ppC_prev = 0.f;
+    float *xf = sXF + p * G * OA_XS;
+    double *xd1 = sD1 + p * G * OA_XD;
+    double *xd2 = sD2 + p * G * 4;
+    // finish row `ri` (1-based) from its E argmax: oC, the margin and the
+    // row's decisions, identically in every warp of the pair
+#define FINISH_ROW(ri, eb, ppCr)                                                  \
+    do {                                                                          \
+        const double rr = (eb).r, mk = (eb).mxk;                                  \
+        const double mE = ((eb).n > 1 || (eb).s2 == NEGD) ? INFINITY : rr - (eb).s2; \
+        const bool eIsD = rr > mk;                                                \
+        const double mED = (mk == rr) ? INFINITY : rr - mk;                       \
+        const double cl = oC + (double)(ppCr);                                    \
+        const bool cge = cl >= rr;                                                \
+        const double mC = (cl == rr) ? INFINITY : fabs(cl - rr);                  \
+        oC = cge ? cl : rr;                                                       \
+        mm = fmin(mm, fmin(mE, fmin(mC, mED)));                                   \
+        if (g == 0 && lane == 0) {                                                \
+            RK[(ri) - 1] = (eb).k;                                                \
+            RF[(ri) - 1] = (uint8_t)((eIsD ? 1 : 0) + (cge ? 2 : 0));             \
+        }                                                                         \
+    } while (0)
+#define XD_EBEST(v, eb)                                                           \
+    do {                                                                          \
+        (v)[3] = (eb).r;                                                          \
+        (v)[4] = (eb).s2;                                                         \
+        (v)[5] = (eb).mxk;                                                        \
+        (v)[6] = (double)(eb).k;                                                  \
+        (v)[7] = (double)(eb).n;                                                  \
+    } while (0)
+#define XD_MERGE(eb)                                                              \
+    do {                                                                          \
+        (eb) = EBest{NEGD, NEGD, NEGD, 0x7fffffff, 0};                            \
+        for (int gg = 0; gg < G; ++gg) {                                          \
+            const double *v = xd1 + gg * OA_XD;                                   \
+            ebest_merge((eb), v[3], (int)v[6], (int)v[7], v[4], v[5]);            \
+        }                                                                         \
+    } while (0)
+
+    for (int i = 1; i <= L; ++i) {
+        const int zr = fresh_zero();
+        const int r = i - 1;                 // residue, stored row and pointer row
+        if ((r & 31) == 0) cw = cs[min(r + lane, L - 1)];
+        float ev[NPL];                       // emissions of residue i
+        ld_row<NPL>(ev, em4 + (size_t)__shfl_sync(FULL_MASK, cw, r & 31) * MQ);
+        // the stored Backward row i, loaded ahead of the meeting
+        float rbM[NPL], rbI[NPL];
+        ld_row<NPL>(rbM, BR4 + (size_t)r * 2 * MQ);
+        ld_row<NPL>(rbI, BR4 + (size_t)r * 2 * MQ + MQ);
+        // row i-1's E argmax over this warp, from oM and oD before this
+        // row overwrites them: its shuffles overlap the Forward below
+        const EBest ebp = warp_ebest<NPL>(oM, oD, kb, Mm, rl_prev);
+        const float bN_i = BS[(size_t)r * 3 + 0], bC_i = BS[(size_t)r * 3 + 1],
+                    bled_i = BS[(size_t)r * 3 + 2];
+        // Forward, pass 1: M and I of row i with zero entering the lane's
+        // delete chain
+        float b = 0.f, sM = 0.f, sD = 0.f, mx = 0.f, blast = 0.f, up = uin;
+#pragma unroll
+        for (int hh = 0; hh < NPL / 4; ++hh) {
+            const float4 qbm = Q(T_BM, hh), qmi = Q(T_MI, hh), qii = Q(T_II, hh),
+                         qdd = Q(T_DD, hh), qmd = Q(T_MD, hh);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int j = 4 * hh + c;
+                const float Mr = (up * inv + B * comp(qbm, c)) * ev[j];
+                const float Ir =
+                    (row.M(j) * comp(qmi, c) + row.I(j) * comp(qii, c)) * inv;
+                up = row.U(j);
+                sD += b;
+                blast = b;
+                b = comp(qdd, c) * b + comp(qmd, c) * Mr;
+                sM += Mr;
+                mx = fmaxf(mx, Mr);
+                row.M(j) = Mr;
+                row.I(j) = Ir;
+            }
+        }
+        float bi = b;                        // inclusive scan of the lane maps
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+            const int s = 1 << t;
+            const float pb = __shfl_up_sync(FULL_MASK, bi, s);
+            if (lane >= s) bi = pb * Astep[t] + bi;
+        }
+        float ebf = __shfl_up_sync(FULL_MASK, bi, 1);
+        if (lane == 0) ebf = 0.f;
+        float E = sM + sD + ebf * SP;        // with zero entering the warp
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            E += __shfl_xor_sync(FULL_MASK, E, o);
+            mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, o));
+        }
+        // the previous row's oM, oI, oD at state k-1 of the lane's first
+        // state: the lane below, or the warp below through the meeting
+        double lM = __shfl_up_sync(FULL_MASK, oM[NPL - 1], 1);
+        double lI = __shfl_up_sync(FULL_MASK, oI[NPL - 1], 1);
+        double lD = __shfl_up_sync(FULL_MASK, oD[NPL - 1], 1);
+        if (lane == 0) {
+            lM = NEGD;
+            lI = NEGD;
+            lD = NEGD;
+        }
+        float Din = 0.f, uB = 0.f;
+        if (G > 1) {
+            if (lane == 31) {
+                float *xx = xf + g * OA_XS;
+                xx[0] = bi;
+                xx[1] = E;
+                xx[2] = mx;
+                xx[3] = row.M(NPL - 1);
+                xx[4] = row.I(NPL - 1);
+                xx[5] = blast + Plast * ebf;
+                double *v = xd1 + g * OA_XD;
+                v[0] = oM[NPL - 1];
+                v[1] = oI[NPL - 1];
+                v[2] = oD[NPL - 1];
+            }
+            if (lane == 0 && i > 1) XD_EBEST(xd1 + g * OA_XD, ebp);
+            pair_barrier(bar, nbar);         // meeting 1 of the row
+            float D = 0.f, Et = 0.f, mt = 0.f;
+            for (int gg = 0; gg < G; ++gg) {
+                const float *xg = xf + gg * OA_XS;
+                const float *wg = sWp + gg * OA_WS;
+                if (gg == g) Din = D;
+                if (gg == g - 1) {
+                    const float Dl = xg[5] + wg[2] * D;
+                    const int sl = gg * 32 + 31;
+                    uB = xg[3] * TLAST(T_MM, sl) + xg[4] * TLAST(T_IM, sl) +
+                         Dl * TLAST(T_DM, sl);
+                }
+                Et += xg[1] + D * wg[1];
+                mt = fmaxf(mt, xg[2]);
+                D = wg[0] * D + xg[0];
+            }
+            E = Et;
+            mx = mt;
+            if (g > 0 && lane == 0) {
+                const double *v = xd1 + (g - 1) * OA_XD;
+                lM = v[0];
+                lI = v[1];
+                lD = v[2];
+            }
+            if (i > 1) {                     // row i-1's E argmax, all warps
+                EBest eb;
+                XD_MERGE(eb);
+                FINISH_ROW(i - 1, eb, ppC_prev);
+            }
+        } else if (i > 1) {
+            FINISH_ROW(i - 1, ebp, ppC_prev);
+        }
+        const float Cn = C * ploop + E;      // unihit: E -> C = 1
+        const float Nn = N * ploop;
+        const float Bn = Nn * pmove;
+        const float scale = fmaxf(mx, fmaxf(Cn, fmaxf(Nn, SCALE_FLOOR)));
+        float iv, kexp;
+        po2_scale(scale, iv, kexp);
+        const float N0 = N, C0 = C, fled0 = fled;
+        N = Nn * iv;
+        B = Bn * iv;
+        C = Cn * iv;
+        fled = fled0 + kexp;
+        const float sc = expf((fled + bled_i) * LN2F - Zlog);
+        const float scN = expf((fled0 + bled_i) * LN2F - Zlog);
+        const float ppN = N0 * ploop * bN_i * scN;
+        const float ppC = C0 * ploop * bC_i * scN;
+
+        // Forward pass 2 (D with its true entering value, the outflow U),
+        // the posteriors and the OA M and I cells (oX[k-1] still the
+        // previous row's: ascending, the old value carried in pM, pI, pD)
+        float c = ebf + ea * Din;
+        double pM = lM, pI = lI, pD = lD;
+        double lmx = NEGD, lmx0 = NEGD;      // the lane's max of M, and without its last state
+        uint32_t pw[NPL / 4];
+#pragma unroll
+        for (int w = 0; w < NPL / 4; ++w) pw[w] = 0u;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+            const int k = kb + j;
+            const int hh = j >> 2, cc = j & 3;
+            const float4 qdd = Q(T_DD, hh), qmd = Q(T_MD, hh), qmm = Q(T_MM, hh),
+                         qim = Q(T_IM, hh), qdm = Q(T_DM, hh);
+            const float D = c;
+            c = comp(qdd, cc) * c + comp(qmd, cc) * row.M(j);
+            row.U(j) = row.M(j) * comp(qmm, cc) + row.I(j) * comp(qim, cc) +
+                       D * comp(qdm, cc);
+            const bool km = k >= 1 && k <= Mm;
+            const bool im = k >= 1 && k <= Mm - 1;
+            const float ppM = km ? (row.M(j) * iv) * rbM[j] * sc : 0.f;
+            const float ppI = im ? (row.I(j) * iv) * rbI[j] * sc : 0.f;
+            const double ch = fmax(fmax(fmax(pM, pI), pD), oN);
+            const int pm = (pM == ch) ? 0 : (pI == ch) ? 1 : (pD == ch) ? 2 : 3;
+            const double oMk = oM[j], oIk = oI[j];
+            const int pi = (oMk >= oIk) ? 0 : 1;
+            pM = oMk;
+            pI = oIk;
+            pD = oD[j];
+            oM[j] = km ? ch + (double)ppM : NEGD;
+            oI[j] = im ? fmax(oMk, oIk) + (double)ppI : NEGD;
+            pw[j >> 2] |= (uint32_t)(pm + 4 * pi) << (8 * (j & 3));
+            if (j < NPL - 1) lmx0 = fmax(lmx0, oM[j]);
+            lmx = fmax(lmx, oM[j]);
+        }
+        oN = oN + (double)ppN;
+        uin = __shfl_up_sync(FULL_MASK, row.U(NPL - 1), 1);
+        if (lane == 0) uin = uB;
+        inv = iv;
+
+        // D: the prefix max of this row's M over states left of k; the
+        // lanes below (warp scan) and the warps below (meeting 2)
+        double xs = lmx;                     // inclusive scan over lanes
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+            const int s = 1 << t;
+            const double q = __shfl_up_sync(FULL_MASK, xs, s);
+            if (lane >= s) xs = fmax(xs, q);
+        }
+        double run = __shfl_up_sync(FULL_MASK, xs, 1);   // lanes below
+        if (lane == 0) run = NEGD;
+        double enter = NEGD, pMx = NEGD, pDx = NEGD;   // M and D at k-1 of the lane's first state
+        if (G > 1) {
+            if (lane == 31) {
+                double *v = xd2 + g * 4;
+                v[0] = xs;                   // the warp's max
+                v[1] = fmax(run, lmx0);      // the same without its last state
+                v[2] = oM[NPL - 1];          // M at its last state
+            }
+            pair_barrier(bar, nbar);         // meeting 2 of the row
+            double below = NEGD;             // max over the warps below g-1
+            for (int gg = 0; gg < g; ++gg) {
+                const double *v = xd2 + gg * 4;
+                if (gg == g - 1) {
+                    pMx = v[2];
+                    pDx = (kb - 1 >= 2 && kb - 1 <= Mm) ? fmax(below, v[1]) : NEGD;
+                }
+                below = fmax(below, v[0]);
+            }
+            enter = below;
+        }
+        run = fmax(run, enter);
+        {   // D at the lane's last state, for the lane above
+            const int kl = kb + NPL - 1;
+            const double dl = (kl >= 2 && kl <= Mm) ? fmax(run, lmx0) : NEGD;
+            const double qd = __shfl_up_sync(FULL_MASK, dl, 1);
+            const double qm = __shfl_up_sync(FULL_MASK, oM[NPL - 1], 1);
+            if (lane > 0) {
+                pDx = qd;
+                pMx = qm;
+            }
+        }
+        double rl = NEGD;                    // the lane's best E candidate
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+            const int k = kb + j;
+            const double Mx = oM[j];
+            const double Dx = (k >= 2 && k <= Mm) ? run : NEGD;
+            run = fmax(run, Mx);
+            pw[j >> 2] |= (uint32_t)((pMx >= pDx) ? 0 : 8) << (8 * (j & 3));
+            pMx = Mx;
+            pDx = Dx;
+            oD[j] = Dx;
+            if (k >= 1 && k <= Mm) rl = fmax(rl, fmax(Mx, Dx));
+        }
+        uint8_t *Pr = PT + ptr_at(r, kb, Mpad);
+        if constexpr (NPL == 8) {
+            *reinterpret_cast<uint2 *>(Pr) = make_uint2(pw[0], pw[1]);
+        } else {
+#pragma unroll
+            for (int w = 0; w < NPL / 4; w += 4)
+                *reinterpret_cast<uint4 *>(Pr + 4 * w) =
+                    make_uint4(pw[w], pw[w + 1], pw[w + 2], pw[w + 3]);
+        }
+        rl_prev = rl;                        // finished in the next row
+        ppC_prev = ppC;
+    }
+    if (L > 0) {                             // the last row's E argmax
+        const EBest ebp = warp_ebest<NPL>(oM, oD, kb, Mm, rl_prev);
+        if (G > 1) {
+            if (lane == 0) XD_EBEST(xd1 + g * OA_XD, ebp);
+            pair_barrier(bar, nbar);
+            EBest eb;
+            XD_MERGE(eb);
+            FINISH_ROW(L, eb, ppC_prev);
+        } else {
+            FINISH_ROW(L, ebp, ppC_prev);
+        }
+    }
+#undef FINISH_ROW
+#undef XD_EBEST
+#undef XD_MERGE
+#undef Q
+#undef TLAST
+#undef XBUF
+    if (g == 0 && lane == 0) {
+        stat[(size_t)pr * 4 + 0] = (float)mm;
+        stat[(size_t)pr * 4 + 2] = Zlog;
+    }
+}
+
+// Pass C of the warp-per-pair kernel: the first-max-wins traceback, one
+// thread per pair of the launch (its nslot CTA slots), after the fill
+// kernel: one dependent load a step, so the pairs walk side by side
+// instead of each holding its fill CTA.
+__global__ void oa_trace_kernel(const int32_t *__restrict__ cta_pair, int nslot,
+                                const int64_t *__restrict__ code_off,
+                                const int32_t *__restrict__ lens,
+                                const int64_t *__restrict__ roff,
+                                const uint8_t *__restrict__ ptr,
+                                const int32_t *__restrict__ rowk,
+                                const uint8_t *__restrict__ rowf,
+                                int32_t *__restrict__ cols, float *__restrict__ stat,
+                                int Mp, int Mpad) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= nslot) return;
+    const int pr = cta_pair[t];
+    if (pr < 0) return;
+    const int L = lens[pr];
+    const int64_t r0 = roff[pr];
+    const uint8_t *PT = ptr + (size_t)r0 * Mpad;
+    const int32_t *RK = rowk + r0;
+    const uint8_t *RF = rowf + r0;
+    int32_t *co = cols + code_off[pr];
+    int i = L, k = 0, st = 0, steps = 0, dead = (L > 0) ? 0 : 1;
+    const int max_steps = 2 * L + Mp + 16;
+    while (!(st == 5 && i == 0) && steps < max_steps && !dead) {
+        const int rw = max(i, 1) - 1;
+        const int kEr = RK[rw];
+        const int fl = RF[rw];
+        const int pb = PT[ptr_at(rw, k, Mpad)];
+        const int pm = pb & 3, pi = (pb >> 2) & 1, pd = (pb >> 3) & 1;
+        int ni = i, nk = k, nst = st;
+        switch (st) {
+        case 0:
+            if (i > 0 && (fl & 2)) ni = i - 1;
+            else nst = 1;
+            break;
+        case 1:
+            nst = (fl & 1) ? 4 : 2;
+            nk = kEr;
+            break;
+        case 2:
+            if (i > 0) co[rw] = k - 1;
+            nst = (pm == 0) ? 2 : (pm == 1) ? 3 : (pm == 2) ? 4 : 5;
+            nk = (pm == 3) ? 0 : k - 1;
+            ni = i - 1;
+            break;
+        case 3:
+            nst = (pi == 0) ? 2 : 3;
+            ni = i - 1;
+            break;
+        case 4:
+            nst = (pd == 0) ? 2 : 4;
+            nk = k - 1;
+            break;
+        default:
+            ni = i - 1;
+            break;
+        }
+        if (ni < 0 || nk < 0 || nk >= Mp) dead = 1;
+        i = ni;
+        k = nk;
+        st = nst;
+        steps += 1;
+    }
+    const bool ok = (st == 5 && i == 0 && !dead);
+    stat[(size_t)pr * 4 + 1] = ok ? 1.f : 0.f;
+    stat[(size_t)pr * 4 + 3] = (float)steps;
+}
+
+static size_t warp_smem_bytes(int WG, int Mpad) {
+    return (size_t)(8 * Mpad + 2 * WG * OA_XS + WG * OA_WS + WG * OA_XS) * sizeof(float) +
+           (size_t)(WG * OA_XD + WG * 4) * sizeof(double);
+}
+
+template <int NPL>
+static int launch_warp(const float *em_t, const float *tr_t, const int32_t *model_of,
+                       const int32_t *ms, const int32_t *codes, const int64_t *code_off,
+                       const int32_t *lens, const float *pmoves, const int32_t *cta_pair,
+                       const int64_t *roff, float *brows, float *bspec, uint8_t *ptr,
+                       int32_t *rowk, uint8_t *rowf, int32_t *cols, float *stat, int ncta,
+                       int K, int G, int Mp, int Mpad, cudaStream_t stream) {
+    const int WP = OA_THREADS / (32 * G) > 0 ? OA_THREADS / (32 * G) : 1;
+    const int threads = WP * G * 32;
+    if (threads > OA_THREADS) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = warp_smem_bytes(WP * G, Mpad);
+    cudaError_t err = set_smem((const void *)oa_warp_kernel<NPL>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (ncta > 0) {
+        oa_warp_kernel<NPL><<<(unsigned)ncta, threads, smem, stream>>>(
+            em_t, tr_t, model_of, ms, codes, code_off, lens, pmoves, cta_pair, roff,
+            brows, bspec, ptr, rowk, rowf, stat, K, G, Mpad);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const int nslot = ncta * WP;
+        oa_trace_kernel<<<(unsigned)((nslot + 127) / 128), 128, 0, stream>>>(
+            cta_pair, nslot, code_off, lens, roff, ptr, rowk, rowf, cols, stat, Mp,
+            Mpad);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The warp-per-pair kernel: npl in {8, 16} states per lane, G <= 8 warps
+// per pair, Mpad = 32 G npl; ncta CTAs of 8 / G pairs each (cta_pair, -1
+// for an empty slot). Scratch per pair at roff[pair] rows: brows [rows][2
+// Mpad] f32, bspec [rows][3] f32, ptr [rows][Mpad] bytes, rowk [rows]
+// int32, rowf [rows] bytes. Returns a cudaError_t code.
+extern "C" int witch_oa_warp(const float *em_t, const float *tr_t,
+                             const int32_t *model_of, const int32_t *ms,
+                             const int32_t *codes, const int64_t *code_off,
+                             const int32_t *lens, const float *pmoves,
+                             const int32_t *cta_pair, const int64_t *roff,
+                             float *brows, float *bspec, uint8_t *ptr,
+                             int32_t *rowk, uint8_t *rowf, int32_t *cols,
+                             float *stat, int ncta, int K, int G, int npl,
+                             int Mp, int Mpad, void *stream) {
+    if (Mpad != 32 * G * npl || Mp > Mpad || G < 1 || G > 8)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define OA_LAUNCH(NPL_)                                                               \
+    launch_warp<NPL_>(em_t, tr_t, model_of, ms, codes, code_off, lens, pmoves,         \
+                      cta_pair, roff, brows, bspec, ptr, rowk, rowf, cols, stat, ncta, \
+                      K, G, Mp, Mpad, st)
+    switch (npl) {
+    case 8: return OA_LAUNCH(8);
+    case 16: return OA_LAUNCH(16);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef OA_LAUNCH
+}
+
+// The first version: one CTA per pair, n pairs, scratch of Ldmax rows
+// per pair. Returns a cudaError_t code.
 extern "C" int witch_oa(const float *em, const float *trans,
                         const int32_t *model_of, const int32_t *ms,
                         const int32_t *codes, const int64_t *code_off,

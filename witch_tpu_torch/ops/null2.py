@@ -17,9 +17,8 @@ runs the same plan, and both write each result back at its input index.
 
 from __future__ import annotations
 
-import dataclasses
 import warnings
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +28,7 @@ from ..device import BankTensors
 from ._plain import (SCALE_FLOOR, bck_chain, bck_chain_coeffs, fwd_chain,
                      fwd_chain_coeffs, shift_l, shift_r)
 from .forward import slot_tables
+from .plan import Plan, plan_launches, scratch_cap  # noqa: F401
 
 NCODE = 128
 
@@ -194,89 +194,10 @@ def n2_layout(Mp: int):
     return 1, G, npl, Mpad
 
 
-@dataclasses.dataclass
-class Plan:
-    """Launches of the null2 kernel over n envelopes.
-
-    cta_env: int32 [n_cta * wp], the envelope of each warp slot of each
-    CTA (-1: empty); one model per CTA, its envelopes longest first.
-    cta0: first CTA of each launch, and n_cta at the end.
-    roff: int64 [n], each envelope's first scratch row in its launch.
-    n_rows: scratch rows of each launch (the sum of its envelopes' Ld).
-    """
-    cta_env: np.ndarray
-    cta0: List[int]
-    roff: np.ndarray
-    n_rows: List[int]
-
-    @property
-    def launches(self) -> int:
-        return len(self.n_rows)
-
-
 def scratch_row_bytes(Mpad: int) -> int:
     """Scratch bytes of one stored Forward row: M and I (f32, Mpad
     slots each) and its f64 ledger entry."""
     return 8 * Mpad + 8
-
-
-def plan_launches(lds, models, wp: int, row_bytes: int,
-                  budget: int) -> Plan:
-    """Group envelopes into CTAs and launches: a pure function of the
-    envelope lengths and models, the envelopes per CTA (wp), the scratch
-    bytes of one stored row and the scratch budget of a launch.
-
-    Each model's envelopes are sorted longest first (ties in input order)
-    and cut into CTAs of wp; the CTAs run longest first, so the warps of a
-    CTA share a model and end together, and the longest start first. A
-    launch takes CTAs in that order while its envelopes' rows fit the
-    budget (always at least one CTA); each envelope's rows start at the
-    prefix sum of the lengths before it in its launch."""
-    lds = np.asarray(lds, np.int64)
-    models = np.asarray(models, np.int64)
-    n = len(lds)
-    order = np.lexsort((np.arange(n), -lds, models))
-    m = models[order]
-    start = np.flatnonzero(np.r_[True, m[1:] != m[:-1]]) if n else \
-        np.zeros(0, np.int64)
-    run_of = np.cumsum(np.r_[False, m[1:] != m[:-1]]) if n else order
-    rank = np.arange(n) - start[run_of]              # place in its model
-    per_run = -(-np.diff(np.r_[start, n]) // wp)     # CTAs per model
-    cta = np.r_[0, np.cumsum(per_run)][run_of] + rank // wp
-    n_cta = int(per_run.sum()) if n else 0
-    first = np.zeros(n_cta, np.int64)
-    first[cta[rank % wp == 0]] = lds[order[rank % wp == 0]]
-    cta_order = np.argsort(-first, kind="stable")    # longest CTAs first
-    pos = np.empty(n_cta, np.int64)
-    pos[cta_order] = np.arange(n_cta)
-    slot = pos[cta] * wp + rank % wp
-    cta_env = np.full(n_cta * wp, -1, np.int32)
-    cta_env[slot] = order
-    cta_rows = np.zeros(n_cta, np.int64)
-    np.add.at(cta_rows, pos[cta], lds[order])
-    cta0, n_rows = [], []
-    rows = 0
-    for t, need in enumerate(cta_rows.tolist()):
-        if not cta0 or (rows + need) * row_bytes > budget:
-            if cta0:
-                n_rows.append(rows)
-            cta0.append(t)
-            rows = 0
-        rows += need
-    if cta0:
-        n_rows.append(rows)
-    cta0.append(n_cta)
-    # rows of each envelope: the prefix sum in slot order, less its
-    # launch's first
-    placed = cta_env[cta_env >= 0].astype(np.int64)
-    ends = np.cumsum(lds[placed])
-    launch_of = np.searchsorted(np.asarray(cta0[1:]),
-                                np.flatnonzero(cta_env >= 0) // wp,
-                                side="right")
-    base = np.r_[0, np.cumsum(n_rows)][launch_of]
-    roff = np.zeros(n, np.int64)
-    roff[placed] = ends - lds[placed] - base
-    return Plan(cta_env, cta0, roff, n_rows)
 
 
 def scratch_budget(dev, layout: int, G: int, npl: int, Mpad: int,
@@ -292,10 +213,7 @@ def scratch_budget(dev, layout: int, G: int, npl: int, Mpad: int,
     smaller than the resident envelopes' rows does a launch hold fewer."""
     import ctypes
     total = int(np.asarray(lds, np.int64).sum()) * row_bytes
-    free, _ = torch.cuda.mem_get_info(dev)
-    avail = free + torch.cuda.memory_reserved(dev) \
-        - torch.cuda.memory_allocated(dev)
-    cap = avail // 2
+    cap = scratch_cap(dev)
     per_sm = ctypes.c_int(0)
     _build.check(_build.lib().witch_null2_ctas_per_sm(
         layout, G, npl, Mpad, ctypes.byref(per_sm)), "null2", count=False)

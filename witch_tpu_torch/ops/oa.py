@@ -1,5 +1,5 @@
-"""Fused unihit posterior + optimal-accuracy alignment: kernel
-(csrc/oa.cu), its plain PyTorch version, and the pair wrapper.
+"""Fused unihit posterior + optimal-accuracy alignment: kernels
+(csrc/oa.cu), their plain PyTorch version, and the pair wrapper.
 
 Counterpart of witch_tpu/ops/pallas_oa.py (pallas_oa,
 oa_columns_device, bank_strictly_positive). Per (model, query) pair:
@@ -7,12 +7,19 @@ Backward and Forward in the odds domain with exact power-of-two
 rescaling, f32 posteriors, the OA DP of witch_tpu/hmm/align_ref.py:
 oa_fill in f64, and the first-max-wins traceback of its oa_trace. The
 decision margin keeps the TPU kernel's definition (see csrc/oa.cu).
+
+oa_layout picks the kernel by the bank width alone: up to Mp 4,096 the
+warp-per-pair kernel (G warps of npl states per lane, its tables laid out
+by oa_tables; pairs grouped by model into CTAs, longest
+first, launches cut by their own scratch, plan.py:plan_launches), above
+it the first version (one CTA per pair, scratch of the longest query for
+every pair).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,11 +29,68 @@ from ..device import BankTensors
 from ._plain import (SCALE_FLOOR, bck_chain, bck_chain_coeffs, fwd_chain,
                      fwd_chain_coeffs, n_passes, po2_scale, shift_l,
                      shift_r)
+from .plan import plan_launches, scratch_cap
 
 NEG = float(-np.finfo(np.float32).max)
 LN2 = float(np.float32(np.log(2.0)))
+# the first version: scratch of all pairs of a launch, and its working
+# rows per state when they live in device memory
 SCRATCH_BYTES = 2 << 30
 ROW_BYTES = 3 * (8 + 4)      # oM oI oD (f64) + fM fI fD (f32) per state
+OA_NPL = (8, 16)             # warp-per-pair kernel: states per lane
+OA_WARPS = 8                 # warps per CTA (csrc/oa.cu OA_THREADS / 32)
+
+
+def oa_layout(Mp: int):
+    """(layout, G warps per pair, npl states per lane, Mpad) for a bank of
+    width Mp. Layout 0, the warp-per-pair kernel: the fewest states per
+    lane (8, else 16) that G <= 8 warps cover, so Mp up to 32 * 8 * 16 =
+    4,096. Layout 1 (wider models): the first version, one CTA per pair
+    (G, npl unused; Mpad = Mp)."""
+    for npl in OA_NPL:
+        G = -(-Mp // (32 * npl))
+        if G <= OA_WARPS:
+            return 0, G, npl, 32 * G * npl
+    return 1, 0, 0, Mp
+
+
+def oa_tables(bt: BankTensors, G: int, npl: int):
+    """The warp-per-pair kernel's tables, cached on the bank: emissions
+    [H, K, Mpad] in k order, zero beyond Mp; transitions [H, 8, Mpad] as
+    the float4s its CTAs copy into shared memory, entry
+    ((r * npl/4 + h) * 32 G + s) * 4 + c holding state s * npl + 4 h + c
+    (zero beyond Mp)."""
+    key = ("oa_tables", G, npl)
+    hit = bt.cache.get(key)
+    if hit is None:
+        Mpad = 32 * G * npl
+        em = torch.zeros((bt.H, bt.K, Mpad), dtype=torch.float32,
+                         device=bt.device)
+        em[:, :, :bt.Mp] = bt.em
+        h, s, c = np.meshgrid(np.arange(npl // 4), np.arange(32 * G),
+                              np.arange(4), indexing="ij")
+        k = (s * npl + 4 * h + c).reshape(-1)
+        src = torch.as_tensor(np.where(k < bt.Mp, k, 0), device=bt.device)
+        live = torch.as_tensor(k < bt.Mp, device=bt.device)
+        tr = (bt.trans.index_select(2, src) * live).contiguous()
+        hit = (em, tr)
+        bt.cache[key] = hit
+    return hit
+
+
+def oa_row_bytes(Mpad: int) -> int:
+    """Scratch bytes of one query row of a pair in the warp-per-pair
+    kernel: the Backward bM and bI (f32, Mpad each), the pointer bytes
+    (Mpad), the bN, bC and exponent specials (3 f32), the E argmax (int32)
+    and the E/C flags (1 byte)."""
+    return 9 * Mpad + 12 + 5
+
+
+def ptr_at(row: int, k: int, Mpad: int) -> int:
+    """Index of (row, state k) in a pair's pointer plane: a lane's npl
+    consecutive states go out as one word, so the plane is row-major in
+    k (csrc/oa.cu:ptr_at)."""
+    return row * Mpad + k
 
 
 def bank_strictly_positive(bank) -> bool:
@@ -65,20 +129,23 @@ def _cummax_neg(v):
 
 
 def oa_ref(bt: BankTensors, rows, ms, flat, off, lens, pmove,
-           chunk: int = 128):
+           chunk: int = 128, Mpad: Optional[int] = None):
     """Plain version. Returns (cols [len(flat)] int32 laid out like
-    `flat`, stat [n, 4] f32 = margin, ok, Zlog, steps)."""
+    `flat`, stat [n, 4] f32 = margin, ok, Zlog, steps). The traceback
+    reads each pair's pointers from a plane of rows of Mpad states
+    (default Mp; the warp-per-pair kernel's is oa_layout's Mpad)."""
     n = rows.shape[0]
     cols = np.full(flat.shape[0], -1, np.int32)
     stat = np.zeros((n, 4), np.float32)
     for c0 in range(0, n, chunk):
         sl = slice(c0, min(n, c0 + chunk))
         _oa_chunk(bt, rows[sl].long(), ms[sl], flat, off[sl], lens[sl],
-                  pmove[sl], cols, stat[sl])
+                  pmove[sl], cols, stat[sl], Mpad or bt.Mp)
     return torch.from_numpy(cols), torch.from_numpy(stat)
 
 
-def _oa_chunk(bt, rows, ms, flat, off, lens, pmove, cols_out, stat_out):
+def _oa_chunk(bt, rows, ms, flat, off, lens, pmove, cols_out, stat_out,
+              Mpad):
     n = rows.shape[0]
     dev = bt.device
     L = int(lens.max().item())
@@ -226,17 +293,20 @@ def _oa_chunk(bt, rows, ms, flat, off, lens, pmove, cols_out, stat_out):
     off_h = off.cpu().numpy()
     stat_out[:, 0] = mm[:, 0].float().cpu().numpy()
     stat_out[:, 2] = Zlog[:, 0].cpu().numpy()
+    plane = np.zeros((L, Mpad), np.uint8)
     for s in range(n):
-        ok, steps, col = _trace(ptr[:, s], rowk[:, s], rowf[:, s],
-                                int(lens_h[s]), Mp, L)
+        plane[:, :Mp] = ptr[:, s]
+        ok, steps, col = _trace(plane.reshape(-1), Mpad, rowk[:, s],
+                                rowf[:, s], int(lens_h[s]), Mp, L)
         stat_out[s, 1] = 1.0 if ok else 0.0
         stat_out[s, 3] = steps
         cols_out[off_h[s]:off_h[s] + lens_h[s]] = col
 
 
-def _trace(ptr, rowk, rowf, L, Mp, Ldmax):
-    """First-max-wins traceback over one pair's pointer plane.
-    States: 0=C 1=E 2=M 3=I 4=D 5=N."""
+def _trace(ptr, Mpad, rowk, rowf, L, Mp, Ldmax):
+    """First-max-wins traceback over one pair's pointer plane (flat,
+    indexed by ptr_at with rows of Mpad states). States: 0=C 1=E 2=M
+    3=I 4=D 5=N."""
     col = np.full(L, -1, np.int32)
     i, k, st, steps = L, 0, 0, 0
     dead = L <= 0
@@ -244,7 +314,7 @@ def _trace(ptr, rowk, rowf, L, Mp, Ldmax):
     while not (st == 5 and i == 0) and steps < max_steps and not dead:
         row = max(i, 1) - 1
         fl = int(rowf[row])
-        pb = int(ptr[row, k])
+        pb = int(ptr[ptr_at(row, k, Mpad)])
         ni, nk, nst = i, k, st
         if st == 0:
             if i > 0 and fl & 2:
@@ -276,10 +346,13 @@ def _trace(ptr, rowk, rowf, L, Mp, Ldmax):
 
 
 def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
-            Ldmax: int = 0):
-    """(cols [len(flat)] int32, stat [n, 4] f32): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors. Ldmax (>= every
-    length) sizes the per-pair scratch and bounds the traceback."""
+            Ldmax: int = 0, budget: Optional[int] = None):
+    """(cols [len(flat)] int32, stat [n, 4] f32) in input order: a CUDA
+    kernel for CUDA tensors (oa_layout: by width alone), the plain
+    version for CPU tensors. Ldmax (>= every length) sizes the first
+    version's per-pair scratch and bounds its traceback; `budget` caps
+    the warp-per-pair kernel's scratch bytes per launch (default: every
+    pair's rows, at most half the memory the card can still hand out)."""
     dev = bt.device
     for t in (rows, ms, flat, off, lens, pmove):
         if t.device != dev:
@@ -299,34 +372,71 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
     off = off.to(torch.int64).contiguous()
     lens = lens.to(torch.int32).contiguous()
     pmove = pmove.to(torch.float32).contiguous()
-    Ldmax = max(int(Ldmax), int(lens.max().item()))
-    Mp = bt.Mp
-    # the six working rows: shared memory, or a device slice per CTA
-    in_dev = ROW_BYTES * Mp > _build.SMEM_ROWS_MAX
-    per = ((Ldmax + 1) * (2 * Mp + 3) * 4 + Ldmax * (Mp + 5)
-           + (ROW_BYTES * Mp if in_dev else 0))
-    chunk = max(1, min(n, SCRATCH_BYTES // per))
-    brows = torch.empty(chunk * (Ldmax + 1) * 2 * Mp, dtype=torch.float32,
-                        device=dev)
-    bspec = torch.empty(chunk * (Ldmax + 1) * 3, dtype=torch.float32,
-                        device=dev)
-    ptr = torch.empty(chunk * Ldmax * Mp, dtype=torch.uint8, device=dev)
-    rowk = torch.empty(chunk * Ldmax, dtype=torch.int32, device=dev)
-    rowf = torch.empty(chunk * Ldmax, dtype=torch.uint8, device=dev)
-    work = (torch.empty(chunk * ROW_BYTES * Mp, dtype=torch.uint8,
-                        device=dev) if in_dev else None)
     lib = _build.lib()
     stream = _build.stream_ptr(dev)
-    for c0 in range(0, n, chunk):
-        m = min(chunk, n - c0)
-        rc = lib.witch_oa(
-            bt.em.data_ptr(), bt.trans.data_ptr(), rows[c0:].data_ptr(),
-            ms[c0:].data_ptr(), flat.data_ptr(), off[c0:].data_ptr(),
-            lens[c0:].data_ptr(), pmove[c0:].data_ptr(), brows.data_ptr(),
-            bspec.data_ptr(), ptr.data_ptr(), rowk.data_ptr(),
-            rowf.data_ptr(), cols.data_ptr(), stat[c0:].data_ptr(),
-            work.data_ptr() if in_dev else None, m, Mp, bt.K, Ldmax, stream)
-        _build.check(rc, "oa")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    layout, G, npl, Mpad = oa_layout(bt.Mp)
+    if layout == 0:
+        lens_h = lens.cpu().numpy().astype(np.int64)
+        wp = max(1, OA_WARPS // G)
+        row_bytes = oa_row_bytes(Mpad)
+        if budget is None:
+            budget = min(int(lens_h.sum()) * row_bytes, scratch_cap(dev))
+        plan = plan_launches(lens_h, rows.cpu().numpy(), wp, row_bytes,
+                             budget)
+        em_t, tr_t = oa_tables(bt, G, npl)
+        cta_pair = torch.from_numpy(plan.cta_env).to(dev)
+        roff = torch.from_numpy(plan.roff).to(dev)
+        most = max(1, max(plan.n_rows))
+        brows = torch.empty(most * 2 * Mpad, dtype=torch.float32, device=dev)
+        bspec = torch.empty(most * 3, dtype=torch.float32, device=dev)
+        ptr = torch.empty(most * Mpad, dtype=torch.uint8, device=dev)
+        rowk = torch.empty(most, dtype=torch.int32, device=dev)
+        rowf = torch.empty(most, dtype=torch.uint8, device=dev)
+        ev[0].record()
+        for a, b in zip(plan.cta0[:-1], plan.cta0[1:]):
+            rc = lib.witch_oa_warp(
+                em_t.data_ptr(), tr_t.data_ptr(), rows.data_ptr(),
+                ms.data_ptr(), flat.data_ptr(), off.data_ptr(),
+                lens.data_ptr(), pmove.data_ptr(),
+                cta_pair[a * wp:].data_ptr(), roff.data_ptr(),
+                brows.data_ptr(), bspec.data_ptr(), ptr.data_ptr(),
+                rowk.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
+                stat.data_ptr(), b - a, bt.K, G, npl, bt.Mp, Mpad, stream)
+            _build.check(rc, "oa")
+        ev[1].record()
+    else:
+        Ldmax = max(int(Ldmax), int(lens.max().item()))
+        Mp = bt.Mp
+        # the six working rows: shared memory, or a device slice per CTA
+        in_dev = ROW_BYTES * Mp > _build.SMEM_ROWS_MAX
+        per = ((Ldmax + 1) * (2 * Mp + 3) * 4 + Ldmax * (Mp + 5)
+               + (ROW_BYTES * Mp if in_dev else 0))
+        chunk = max(1, min(n, SCRATCH_BYTES // per))
+        brows = torch.empty(chunk * (Ldmax + 1) * 2 * Mp,
+                            dtype=torch.float32, device=dev)
+        bspec = torch.empty(chunk * (Ldmax + 1) * 3, dtype=torch.float32,
+                            device=dev)
+        ptr = torch.empty(chunk * Ldmax * Mp, dtype=torch.uint8, device=dev)
+        rowk = torch.empty(chunk * Ldmax, dtype=torch.int32, device=dev)
+        rowf = torch.empty(chunk * Ldmax, dtype=torch.uint8, device=dev)
+        work = (torch.empty(chunk * ROW_BYTES * Mp, dtype=torch.uint8,
+                            device=dev) if in_dev else None)
+        ev[0].record()
+        for c0 in range(0, n, chunk):
+            m = min(chunk, n - c0)
+            rc = lib.witch_oa(
+                bt.em.data_ptr(), bt.trans.data_ptr(), rows[c0:].data_ptr(),
+                ms[c0:].data_ptr(), flat.data_ptr(), off[c0:].data_ptr(),
+                lens[c0:].data_ptr(), pmove[c0:].data_ptr(),
+                brows.data_ptr(), bspec.data_ptr(), ptr.data_ptr(),
+                rowk.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
+                stat[c0:].data_ptr(), work.data_ptr() if in_dev else None,
+                m, Mp, bt.K, Ldmax, stream)
+            _build.check(rc, "oa")
+        ev[1].record()
+    ev[1].synchronize()
+    _build.KERNEL_MS["oa"] += ev[0].elapsed_time(ev[1])
     return cols, stat
 
 

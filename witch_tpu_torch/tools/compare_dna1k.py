@@ -9,7 +9,8 @@ The data is scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
 The trees run in turns A B B A, each in its own process, so the timings
 come from one call on one card. Per run it prints one JSON line: the
 tree, the wall time, and the runtime_breakdown.txt lines of the device
-Forward scoring, the device gate and the total; then one JSON line
+Forward scoring, the device gate, the alignment (device posterior+OA,
+with the OA kernel's ms and launches) and the total; then one JSON line
 comparing every run's aligned.fasta and aligned.masked.fasta with the
 first run's, naming any row that differs.
 """
@@ -51,6 +52,7 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "compare_dna1k"))
     a = ap.parse_args()
+    a.out = os.path.abspath(a.out)       # the runs' working directories differ
     trees = [os.path.abspath(t) for t in a.tree]
     turns = trees if len(trees) == 1 else \
         [trees[0], trees[1], trees[1], trees[0]]
@@ -80,7 +82,8 @@ def main():
         lines = [ln.split("\t", 1)[-1].strip() for ln in open(
             os.path.join(outdir, "runtime_breakdown.txt"))
             if "device Forward" in ln or "Total runtime" in ln
-            or "all-vs-all Forward" in ln or "device gate" in ln]
+            or "all-vs-all Forward" in ln or "device gate" in ln
+            or "posterior+OA" in ln]
         print(json.dumps(dict(tree=t, run=i, wall_s=wall, lines=lines,
                               card=card)), flush=True)
         outs.append(outdir)

@@ -39,6 +39,24 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+# The CLI arguments of a set (amino500, dna1k or scenA) on its data
+# directory; a recorder script defines root, which and data first.
+SET_ARGV = r"""
+gold = os.path.join(root, "tests", "golden")
+if which == "amino500":
+    argv = ["-b", os.path.join(gold, "ref_amino500.backbone.fasta"),
+            "-e", os.path.join(gold, "ref_amino500.backbone.tre"),
+            "-q", os.path.join(gold, "ref_amino500.queries.fasta"),
+            "--molecule", "amino"]
+elif which == "dna1k":
+    argv = ["-b", os.path.join(data, "backbone.aln.fasta.gz"),
+            "-e", os.path.join(data, "backbone.tre"),
+            "-q", os.path.join(data, "queries.fasta")]
+else:
+    argv = ["-i", os.path.join(data, "input.fasta"), "--backbone-size", "100"]
+argv += ["-d", os.path.join(data, "out_" + which), "-o", "aligned.fasta"]
+"""
+
 RECORD = r"""
 import os, sys
 import numpy as np
@@ -53,20 +71,8 @@ def rec(bt, entries):
     calls.append((bt, list(entries)))
     return orig(bt, entries)
 gd.null2_envelopes = rec
-gold = os.path.join(root, "tests", "golden")
-od = os.path.join(data, "out_" + which)
-if which == "amino500":
-    argv = ["-b", os.path.join(gold, "ref_amino500.backbone.fasta"),
-            "-e", os.path.join(gold, "ref_amino500.backbone.tre"),
-            "-q", os.path.join(gold, "ref_amino500.queries.fasta"),
-            "--molecule", "amino"]
-elif which == "dna1k":
-    argv = ["-b", os.path.join(data, "backbone.aln.fasta.gz"),
-            "-e", os.path.join(data, "backbone.tre"),
-            "-q", os.path.join(data, "queries.fasta")]
-else:
-    argv = ["-i", os.path.join(data, "input.fasta"), "--backbone-size", "100"]
-witch_runner(argv + ["-d", od, "-o", "aligned.fasta"])
+""" + SET_ARGV + r"""
+witch_runner(argv)
 arrs = {}
 for c, (bt, entries) in enumerate(calls):
     arrs["em%d" % c] = bt.em.cpu().numpy()
@@ -245,11 +251,8 @@ def smi():
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
 
 
-def record(which, cache):
-    """The set's envelopes through this checkout's CLI, cached."""
-    out = os.path.join(cache, which + ".npz")
-    if os.path.exists(out):
-        return out
+def make_data(which, cache):
+    """The data directory of a set (amino500 reads tests/golden)."""
     data = os.path.join(cache, "data_" + which)
     os.makedirs(data, exist_ok=True)
     gen = [sys.executable, os.path.join(ROOT, "scripts",
@@ -269,7 +272,17 @@ def record(which, cache):
         recs += [(n, s.upper()) for n, s in read_fasta(
             os.path.join(data, "queries.fasta"))]
         write_fasta(recs, os.path.join(data, "input.fasta"))
-    r = subprocess.run([sys.executable, "-c", RECORD, ROOT, which, data,
+    return data
+
+
+def record(which, cache, script=RECORD):
+    """The set's inputs through this checkout's CLI, recorded by `script`
+    (argv: root, set, data directory, output .npz), cached."""
+    out = os.path.join(cache, which + ".npz")
+    if os.path.exists(out):
+        return out
+    data = make_data(which, cache)
+    r = subprocess.run([sys.executable, "-c", script, ROOT, which, data,
                         out], capture_output=True, text=True, timeout=1800)
     if r.returncode != 0:
         raise RuntimeError("recording %s failed:\n%s" % (
