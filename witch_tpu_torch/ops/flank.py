@@ -1,5 +1,5 @@
-"""Multihit flank posterior rows for the reporting-gate prefilter: kernel
-(csrc/flank.cu), its plain PyTorch version, and the wrapper.
+"""Multihit flank posterior rows for the reporting-gate prefilter: kernels
+(csrc/flank.cu), their plain PyTorch version, and the wrapper.
 
 Counterpart of witch_tpu/hmm/flank_device.py:_flank_one, vmapped over
 the [Q, H] grid by flank_rows_bank (XLA scans there, not a Pallas
@@ -8,21 +8,111 @@ the odds domain, rescaled per row by max(M, C, N) with a 1e-35 floor,
 combined into the special-state posterior rows the region finder reads:
 fwd (nats), and ppB, ppE, mocc over rows 0..L, zero past the query.
 Outputs keep the JAX layout: fwd [Q, H], rows [Q, H, Lmax + 1], f32.
+
+flank_layout picks the kernel by the bank width alone: wherever
+ops/forward.py:fwd_layout keeps the row in registers (Mpad up to
+~7,000), the warp-per-pair kernel (G warps of npl states per lane per
+pair, several pairs of one model per CTA, its tables laid out by
+flank_tables, the queries longest first by cta_queries); wider models
+run the first version (one CTA per pair).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import _build
 from ..device import BankTensors
 from ._plain import (bck_chain, bck_chain_coeffs, fwd_chain,
                      fwd_chain_coeffs, shift_l, shift_r)
+from .forward import fwd_layout, length_order, slot_index, slot_tables
 
 FLANK_FLOOR = 1e-35          # flank_device.py:93,143
 SCRATCH_BYTES = 2 << 30      # device scratch for the stored Forward specials
+SPEC = 5                     # stored Forward log specials per row
+FLANK_WARPS = 8              # warps per CTA (csrc/flank.cu FL_THREADS / 32)
+FLANK_XS = 8                 # floats per warp of a row's exchange
+FLANK_WS = 4                 # loop-invariant floats per warp
+T_MD, T_DD = 2, 6            # transition rows (device.py:TRANS_ROWS)
+
+
+def flank_layout(Mp: int):
+    """(layout, G warps per pair, npl states per lane, Mpad) for a bank
+    of width Mp. Layout 0, the warp-per-pair kernel: forward's register
+    layout (ops/forward.py:fwd_layout) wherever it has one and the
+    transitions fit in shared memory. Layout 1 (wider models): the first
+    version, one CTA per pair, its rows in shared memory (G, npl unused;
+    Mpad = Mp)."""
+    layout, G, npl, Mpad = fwd_layout(Mp)
+    if layout == 0 and smem_bytes(G, Mpad) <= _build.SMEM_ROWS_MAX:
+        return 0, G, npl, Mpad
+    return 1, 0, 0, Mp
+
+
+def smem_bytes(G: int, Mpad: int) -> int:
+    """Dynamic shared memory of a warp-per-pair CTA: the model's
+    transitions, the double-buffered row exchange and the invariants."""
+    wp = max(1, FLANK_WARPS // G)
+    return 4 * (8 * Mpad + 2 * wp * G * FLANK_XS + wp * G * FLANK_WS)
+
+
+def unit_chain(tdd: torch.Tensor) -> torch.Tensor:
+    """D_1[..., k] = 1 + tdd[k] D_1[k + 1] with nothing beyond the last
+    state (the Backward delete chain's response to its E state), taken in
+    f64 and returned in f32."""
+    t = tdd.double()
+    return bck_chain(torch.ones_like(t), bck_chain_coeffs(t)).float()
+
+
+def flank_tables(bt: BankTensors, G: int, npl: int):
+    """The warp-per-pair kernel's tables in forward's slot layout
+    (ops/forward.py:slot_index over Mpad = 32 G npl states), cached on the
+    bank:
+      em_t [H, K, Mpad]  emissions (ops/forward.py:slot_tables);
+      tr_t [H, 8, Mpad]  transitions, with t_md and t_dd of state Mp - 1
+                         zeroed: the plain chains never read them (its
+                         Forward has no D[Mp], its Backward's D[Mp - 1]
+                         sees nothing beyond), the kernel's padded row
+                         would;
+      d1_t [H, Mpad]     D_1 = unit_chain over the padded t_dd: a
+                         Backward row's delete chain is D = D_c + E D_1,
+                         D_c the chain over c[k] = mne[k + 1] t_dm[k]
+                         alone, so the kernel runs D_c before E is known
+                         and reads D_1 where a lane's chain enters."""
+    key = ("flank_slots", G, npl)
+    hit = bt.cache.get(key)
+    if hit is None:
+        Mpad = 32 * G * npl
+        tr = torch.zeros((bt.H, 8, Mpad), dtype=torch.float32,
+                         device=bt.device)
+        tr[:, :, :bt.Mp] = bt.trans
+        tr[:, T_MD, bt.Mp - 1] = 0.0
+        tr[:, T_DD, bt.Mp - 1] = 0.0
+        k = torch.as_tensor(slot_index(Mpad, G, npl), device=bt.device)
+        hit = (slot_tables(bt, G, npl)[0],
+               tr.index_select(2, k).contiguous(),
+               unit_chain(tr[:, T_DD]).index_select(1, k).contiguous())
+        bt.cache[key] = hit
+    return hit
+
+
+def cta_queries(qlens: torch.Tensor, wp: int) -> torch.Tensor:
+    """The query of each pair slot of the warp-per-pair kernel, int32
+    [ceil(Q / wp) * wp]: slot s is the s-th longest query (length_order),
+    -1 past the last. CTA c runs model c % H on slots (c // H) * wp ..
+    + wp - 1 and writes each pair's outputs at its query's own row."""
+    order = length_order(qlens)
+    pad = -len(order) % wp
+    return torch.cat([order, order.new_full((pad,), -1)])
+
+
+def spec_floats(Lc: int) -> int:
+    """Scratch floats of one pair's stored Forward specials: a record of
+    SPEC per row 0..Lc + 1 (csrc/flank.cu, "stored specials")."""
+    return SPEC * (Lc + 2)
 
 
 def flank_rows_ref(bt: BankTensors, codes: torch.Tensor,
