@@ -124,3 +124,40 @@ def test_cta_queries_order_and_write_back(wp, Q):
         back = torch.empty_like(w)
         back[s] = g
         torch.testing.assert_close(back, w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Mp", [(300, 416), (1200, 1312), (1400, 1440),
+                                  (1500, 1568), (2600, 2720)])
+def test_warp_kernel_matches_plain(M, Mp):
+    """The warp-per-pair kernel at G = 1 (Mp 416, 1,312, 1,440) and G = 2
+    (Mp 1,568, 2,720) against the plain version on two models and ragged
+    queries: lengths 1 to the longest, more queries than a CTA's pairs.
+    |dfwd| <= 5e-3 nats and |drows| <= 2e-3, the JAX package's own bounds
+    against f64 (tests/test_flank_device.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu.hmm.bank import build_banks
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.device import bank_to_torch
+    from witch_tpu_torch.ops.flank import flank_rows
+    from test_torch_forward import model_and_fragments
+    lens = [1, 280, 1, 2, 17, 64, 1, 129, 255, 3, 1, 280, 77]
+    core, codes, lens = model_and_fragments(M, M, lens)
+    core2, _, _ = model_and_fragments(M - 20, M + 1, [5])
+    bank = build_banks([core, core2], uniform=True, n_buckets=2)[0]
+    bt = bank_to_torch(bank, "cuda")
+    assert bt.Mp == Mp and flank_layout(Mp)[0] == 0
+    c = torch.from_numpy(codes).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    _build.reset_launches()
+    got = flank_rows(bt, c, ln)
+    assert _build.LAUNCHES["flank"] == 1 and _build.KERNEL_MS["flank"] > 0
+    ref = flank_rows_ref(bt, c, ln)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all()
+    assert float((got[0] - ref[0]).abs().max()) <= 5e-3
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a - b).abs().max()) <= 2e-3
+    for q, L in enumerate(lens):                 # the tail is zero
+        assert not any(x[q, :, L + 1:].any() for x in got[1:])

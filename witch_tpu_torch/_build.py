@@ -34,10 +34,10 @@ SMEM_ROWS_MAX = 232448 - 1024
 # Kernel launches per wrapper since the last reset (plain integers: the
 # wrappers add one where they launch their kernel, and nowhere else).
 LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0}
-# CUDA-event milliseconds of the null2 and OA kernels' launches since the
-# last reset (ops/null2.py and ops/oa.py add each call's launches, from
-# the first to the last, once the last has finished)
-KERNEL_MS = {"null2": 0.0, "oa": 0.0}
+# CUDA-event milliseconds of the null2, OA and flank kernels' launches
+# since the last reset (ops/null2.py, ops/oa.py and ops/flank.py add each
+# call's launches, from the first to the last, once the last has finished)
+KERNEL_MS = {"null2": 0.0, "oa": 0.0, "flank": 0.0}
 
 _lock = threading.Lock()
 _lib = None
@@ -120,8 +120,9 @@ def lib():
             so.witch_oa.argtypes = [P] * 16 + [I, I, I, I, P]
             so.witch_oa_warp.argtypes = [P] * 17 + [I] * 6 + [P]
             so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]
+            so.witch_flank_warp.argtypes = [P] * 11 + [I] * 8 + [P]
             for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
-                       so.witch_oa_warp, so.witch_flank,
+                       so.witch_oa_warp, so.witch_flank, so.witch_flank_warp,
                        so.witch_null2_ctas_per_sm):
                 fn.restype = I
             _lib = so

@@ -1,34 +1,70 @@
-// Multihit flank posterior rows for the reporting gate prefilter, one
-// CTA per (model, query) pair of an all-vs-all grid.
+// Multihit flank posterior rows for the reporting-gate prefilter
+// (--full-search-results) on Hopper, over an all-vs-all grid of (model,
+// query) pairs.
 //
 // Replaces: witch_tpu/hmm/flank_device.py:_flank_one (vmapped by
 // flank_rows_bank; XLA scans, not a Pallas kernel), the device half of
-// prefilter_grid under --full-search-results.
+// prefilter_grid.
 //
 // Per pair: a multihit Forward over the query, rescaled per row by
 // max(max M, C, N) with a 1e-35 floor, storing each row's log specials
-// (N B J C E, plus the running log scale) to a device scratch; then the
-// Backward from the terminal row L down to row 0 with the same rescale,
-// combining each row's log specials with the stored Forward ones into
+// (with the running log scale); then the Backward from the terminal row L
+// down to row 0 with the same rescale, combining each row's log specials
+// with the stored Forward ones into
 //   ppB[i] = exp(fB[i] + bB[i] - fwd),  ppE[i] = exp(fE[i] + bE[i] - fwd),
 //   mocc[i] = 1 - (ppN + ppJ + ppC)[i],  ppX[i] = exp(fX[i-1] + ln loop
 //             + bX[i] - fwd),
 // with numpy.nan_to_num semantics, rows past the query length zeroed
-// (flank_device.py:182-197). Row arithmetic is f32 as on the TPU.
+// (flank_device.py:182-197). Row arithmetic is f32 as on the TPU; the
+// plain version is ops/flank.py:flank_rows_ref.
 //
-// What bounds it on an H100: as forward.cu, per-row barrier latency and
-// the L1/L2 reads of the model tables, over 2 * L rows per pair (Forward
-// and Backward); the outputs are 3 * (L + 1) floats per pair.
+// What bounds it on an H100: about 40 f32 operations per DP cell (model
+// state x query row: the Forward's 20 and the Backward's 20) at the
+// card's 67 TFLOP/s outside the tensor cores; its bytes (the outputs,
+// 12 B per row of the padded query length, and the stored specials,
+// 20 B per row written and read back) are ~100x less at 3.35 TB/s. The
+// grid is dense (tens of thousands of pairs), so the card's issue rate,
+// not one pair's per-row latency, sets the time, as for forward.cu.
 //
-// Design: the working rows (3 * Mp floats, 197 KB at Mp = 16,416, the
-// 16,384-state cap) live in shared memory and are updated in place with
-// the row helpers of common.cuh: the block scan of affine maps for both
-// delete chains (the Backward chain runs right to left with tdd
-// unshifted, D[k] = tdd[k] D[k+1] + c[k]) and the Backward row step. The
-// multihit Backward E state needs the B-state sum of the row before the
-// delete chain, so each Backward row does one extra block reduction. A
-// model too wide for shared memory (Mp above ~19,000, beyond the cap)
-// makes the launch fail, and the wrapper raises.
+// Two kernels, picked by width (ops/flank.py:flank_layout):
+//
+// flank_warp_kernel: one warp, or G warps for wide models, per pair, and
+// several pairs of one model per CTA, the row in registers in the lane-slot
+// layout of common.cuh (state k = (g*32 + lane)*npl + j at slot
+// (j*G + g)*32 + lane); the model's transitions copied into shared memory
+// once per CTA. Every width whose transitions fit there (Mpad up to
+// ~7,000): every bank of the full-search paths and the bench grid.
+// - Forward: as forward.cu's. With G = 1 a row has no barrier: the delete
+//   chain is a warp scan of affine maps whose multipliers (products of
+//   t_dd) are taken once per pair, and the E sum and the rescale max are
+//   shuffles. With G > 1 the pair's warps meet once a row at a named
+//   barrier of their own threads.
+// - Backward, one meeting a row. Its delete chain
+//   D[k] = c[k] + E + t_dd[k] D[k+1], c[k] = mne[k+1] t_dm[k], is linear
+//   in the row's E state, which needs the row's B sum: D = D_c + E D_1,
+//   with D_1 a per-model invariant (ops/flank.py:flank_tables, d1_t). So
+//   a lane runs its part of the c chain before E is known, and the row's
+//   one exchange carries the chain carries together with the partial B
+//   sum. The rescale needs the finished row's max, so the Backward is
+//   pipelined by one row: row i+1 stays unscaled until the meeting of row
+//   i, which carries its max as well (everything taken from it before the
+//   meeting is linear in its scale). The terminal row is D_L = E_L D_1.
+// - Stored specials: a record of 5 floats per row, record i holding what
+//   the combine of row i reads, (fN fJ fC)[i-1] and (fB fE)[i]; lanes 0-4
+//   write one each in the Forward and read one each in the Backward, and
+//   spread the row's logs and exps. Each pair's records lie at its own
+//   offset of the launch's scratch (ops/flank.py:spec_floats).
+// - Outputs: the combined rows are staged in registers, lane (r & 31)
+//   holding output index r, and stored 32 at a time, one 128-byte line per
+//   array whenever the pair's rows cover it.
+// - The wrapper sorts the queries longest first (ops/flank.py:cta_queries),
+//   so the pairs of a CTA end together; each writes at its own [q, h].
+//
+// flank_kernel, the first version, for wider models (Mp above ~7,000, up
+// to the 16,384-state cap): one CTA of 256 threads per pair, the rows
+// (3 * Mp floats, 197 KB at Mp 16,416) in shared memory and updated in
+// place with the block-wide row helpers of common.cuh, a block barrier on
+// every row.
 
 #include <float.h>
 #include <math.h>
@@ -37,12 +73,446 @@
 
 static constexpr float FLANK_FLOOR = 1e-35f;   // flank_device.py:93,143
 
+#define FL_THREADS 256
+#define FL_XS 8          // floats per warp of a row's exchange
+#define FL_WS 4          // loop-invariant floats per warp
+#define FL_SPEC 5        // stored specials per row
+
 // numpy.nan_to_num for f32: NaN -> 0, +-inf -> +-FLT_MAX
 static __device__ __forceinline__ float nan0(float x) {
     if (isnan(x)) return 0.f;
     if (isinf(x)) return x > 0.f ? FLT_MAX : -FLT_MAX;
     return x;
 }
+
+template <int NPL>
+__global__ void __launch_bounds__(FL_THREADS)
+    flank_warp_kernel(const float *__restrict__ em_t,
+                      const float *__restrict__ tr_t,
+                      const float *__restrict__ d1_t,
+                      const int32_t *__restrict__ codes,
+                      const int32_t *__restrict__ qlens,
+                      const int32_t *__restrict__ slots,
+                      float *__restrict__ fwd_out, float *__restrict__ ppB,
+                      float *__restrict__ ppE, float *__restrict__ mocc,
+                      float *__restrict__ fspec, int H, int K, int Lstride,
+                      int W, int G, int Mpad) {
+    extern __shared__ float smem[];
+    const int S = G * 32;                  // slot stride from j to j + 1
+    const int WP = blockDim.x / S;         // pairs in this CTA
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int p = warp / G, g = warp - p * G;
+    const int h = blockIdx.x % H;
+    const int sl = (blockIdx.x / H) * WP + p;      // the pair's query slot
+    float *sX = smem + 8 * Mpad;                   // [2][WP][G][FL_XS]
+    float *sW = sX + 2 * WP * G * FL_XS + p * G * FL_WS;   // [G][FL_WS]
+    {
+        const float4 *src =
+            reinterpret_cast<const float4 *>(tr_t + (size_t)h * 8 * Mpad);
+        float4 *dst = reinterpret_cast<float4 *>(smem);
+        for (int t = threadIdx.x; t < 2 * Mpad; t += blockDim.x) dst[t] = src[t];
+        __syncthreads();                    // once per CTA, not per row
+    }
+    const int q = slots[sl];
+    if (q < 0) return;                      // the pair's warps leave together
+    const float *T = smem;
+    const int L = qlens[q];
+    const int32_t *cq = codes + (size_t)q * Lstride;
+    const int v = g * 32 + lane;            // the lane's chunk of states
+    const float *tl = T + v;
+    const float *el = em_t + (size_t)h * K * Mpad + v;
+    const bool lead = g == 0;               // writes the pair's outputs
+    const size_t rbase = ((size_t)q * H + h) * W;  // the pair's output row
+    float *FS = fspec + ((size_t)sl * H + h) * (size_t)(FL_SPEC * (Lstride + 2));
+    const int bar = 1 + p;
+#define TR(r, j) tl[(r) * Mpad + (j) * S]
+#define XB(ph) (sX + (((ph) & 1) * WP + p) * G * FL_XS)
+    int ph = 0;                             // meetings so far (buffer parity)
+
+    const float pmove = 3.0f / ((float)L + 3.0f);
+    const float ploop = 1.0f - pmove;
+    if (lead) {
+        for (size_t r = rbase + L + 1 + lane; r < rbase + W; r += 32) {
+            ppB[r] = 0.f;
+            ppE[r] = 0.f;
+            mocc[r] = 0.f;
+        }
+        // record 0: fB[0] = ln pmove, fE[0] = -inf (its N J C unused);
+        // record 1: fN[0] = 0, fJ[0] = fC[0] = -inf
+        if (lane < FL_SPEC) FS[lane] = lane == 3 ? logf(pmove) : -INFINITY;
+        if (lane < 3) FS[FL_SPEC + lane] = lane == 0 ? 0.f : -INFINITY;
+    }
+
+    LaneRow<NPL> row;
+    // ---- Forward invariants. Within the lane, D at its j-th state is
+    // its local chain plus Pj times the D entering the lane; the lane's
+    // map multiplies what enters by a = prod t_dd.
+    float Pj = 1.f, SP = 0.f, Plast = 1.f;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+        row.M(j) = 0.f;
+        row.I(j) = 0.f;
+        row.U(j) = 0.f;
+        SP += Pj;
+        Plast = Pj;
+        Pj *= TR(T_DD, j);
+    }
+    float Astep[5];                         // left-to-right scan multipliers
+    float xa = Pj;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+        const int s = 1 << t;
+        const float pa = __shfl_up_sync(FULL_MASK, xa, s);
+        Astep[t] = lane >= s ? xa : 0.f;
+        if (lane >= s) xa *= pa;
+    }
+    float ea = __shfl_up_sync(FULL_MASK, xa, 1);   // prod of earlier lanes' a
+    if (lane == 0) ea = 1.f;
+    if (G > 1) {
+        // the warp's map multiplier, the E sum's and its last state's D's
+        // sensitivity to the D entering the warp
+        float se = ea * SP;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(FULL_MASK, se, o);
+        const float aw = __shfl_sync(FULL_MASK, xa, 31);
+        const float dl = __shfl_sync(FULL_MASK, ea * Plast, 31);
+        if (lane == 0) {
+            sW[g * FL_WS + 0] = aw;
+            sW[g * FL_WS + 1] = se;
+            sW[g * FL_WS + 2] = dl;
+        }
+    }
+
+    // ---- Forward, the rows' log specials stored ----
+    float N = 1.f, B = pmove, J = 0.f, C = 0.f, logs = 0.f, inv = 1.f;
+    float uin = 0.f;        // outflow of the state left of the lane's chunk
+    int cw = 0;             // codes of rows (i & ~31) + lane
+    for (int i = 0; i < L; ++i) {
+        if ((i & 31) == 0) cw = cq[min(i + lane, L - 1)];
+        const float *e = el + (size_t)__shfl_sync(FULL_MASK, cw, i & 31) * Mpad;
+        // pass 1: M and I of DP row i + 1 from row i (scaled as read), the
+        // lane's chain with nothing entering, its sums and max
+        float b = 0.f, sM = 0.f, sD = 0.f, mx = 0.f, blast = 0.f, up = uin;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+            const float Mr = (up * inv + B * TR(T_BM, j)) * e[j * S];
+            const float Ir = (row.M(j) * TR(T_MI, j) + row.I(j) * TR(T_II, j)) * inv;
+            up = row.U(j);
+            sD += b;
+            blast = b;
+            b = TR(T_DD, j) * b + TR(T_MD, j) * Mr;
+            sM += Mr;
+            mx = fmaxf(mx, Mr);
+            row.M(j) = Mr;
+            row.I(j) = Ir;
+        }
+        float bi = b;                       // inclusive scan of the lane maps
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+            const float pb = __shfl_up_sync(FULL_MASK, bi, 1 << t);
+            if (lane >= (1 << t)) bi = pb * Astep[t] + bi;
+        }
+        float eb = __shfl_up_sync(FULL_MASK, bi, 1);
+        if (lane == 0) eb = 0.f;
+        float E = sM + sD + eb * SP;        // with nothing entering the warp
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            E += __shfl_xor_sync(FULL_MASK, E, o);
+            mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, o));
+        }
+        float Din = 0.f, uB = 0.f;
+        if (G > 1) {
+            float *xr = XB(ph++);
+            if (lane == 31) {
+                float *x = xr + g * FL_XS;
+                x[0] = bi;                  // the D leaving the warp
+                x[1] = E;
+                x[2] = mx;
+                x[3] = row.M(NPL - 1);
+                x[4] = row.I(NPL - 1);
+                x[5] = blast + Plast * eb;  // D at the warp's last state
+            }
+            pair_barrier(bar, S);           // the one meeting of the row
+            float D = 0.f, Et = 0.f, mt = 0.f;
+            for (int gg = 0; gg < G; ++gg) {
+                const float *xg = xr + gg * FL_XS;
+                const float *wg = sW + gg * FL_WS;
+                if (gg == g) Din = D;
+                if (gg == g - 1) {          // the outflow of its last state
+                    const int sk = (NPL - 1) * S + gg * 32 + 31;
+                    uB = xg[3] * T[T_MM * Mpad + sk] + xg[4] * T[T_IM * Mpad + sk] +
+                         (xg[5] + wg[2] * D) * T[T_DM * Mpad + sk];
+                }
+                Et += xg[1] + D * wg[1];
+                mt = fmaxf(mt, xg[2]);
+                D = wg[0] * D + xg[0];
+            }
+            E = Et;
+            mx = mt;
+        }
+        const float Jn = J * ploop + E * 0.5f;
+        const float Cn = C * ploop + E * 0.5f;
+        const float Nn = N * ploop;
+        const float Bn = Nn * pmove + Jn * pmove;
+        if (lead && lane < FL_SPEC) {
+            // N J C of row i + 1 to record i + 2, its B E to record i + 1
+            const float val = lane == 0 ? Nn : lane == 1 ? Jn : lane == 2 ? Cn
+                              : lane == 3 ? Bn : E;
+            FS[(lane < 3 ? i + 2 : i + 1) * FL_SPEC + lane] = logf(val) + logs;
+        }
+        const float scale = fmaxf(fmaxf(mx, fmaxf(Cn, Nn)), FLANK_FLOOR);
+        const float iv = 1.0f / scale;
+        N = Nn * iv;
+        B = Bn * iv;
+        J = Jn * iv;
+        C = Cn * iv;
+        logs += logf(scale);
+        // pass 2: D with its true entering value, and the outflow u
+        float c = eb + ea * Din;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+            const float D = c;
+            c = TR(T_DD, j) * c + TR(T_MD, j) * row.M(j);
+            row.U(j) = row.M(j) * TR(T_MM, j) + row.I(j) * TR(T_IM, j) + D * TR(T_DM, j);
+        }
+        const float ul = __shfl_up_sync(FULL_MASK, row.U(NPL - 1), 1);
+        uin = lane ? ul : uB;
+        inv = iv;
+    }
+    const float fwd = logf(C * pmove) + logs;
+    if (lead && lane == 0) fwd_out[(size_t)q * H + h] = fwd;
+    const float log_loop = logf(ploop);
+
+    // ---- Backward invariants. Right to left, a lane's map takes the D_c
+    // entering from its right; the warp's last lane leaves out its last
+    // state's t_dd, so that everything before the meeting is free of the
+    // next warp: the warp's last state then holds
+    // X = t_dm mne[s1] + t_dd D_c[s1] (s1 the next warp's first state),
+    // and the D_c entering lane l < 31 is its scan term plus dX X.
+    float ab = 1.f;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j)
+        if (lane < 31 || j < NPL - 1) ab *= TR(T_DD, j);
+    float Bstep[5];
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+        const int s = 1 << t;
+        const float pa = __shfl_down_sync(FULL_MASK, ab, s);
+        Bstep[t] = lane + s < 32 ? ab : 0.f;
+        if (lane + s < 32) ab *= pa;
+    }
+    // ab is now the product from the lane's first state to the warp's
+    // last but one: the sensitivity of D_c there to X
+    float dX = __shfl_down_sync(FULL_MASK, ab, 1);
+    if (lane == 31) dX = 0.f;
+    if (G > 1 && lane == 0) sW[g * FL_WS + 3] = ab;   // visible at the first meeting
+    const float d1r = v + 1 < S ? d1_t[(size_t)h * Mpad + v + 1] : 0.f;
+
+    // ---- terminal row L: D_L = E_L D_1, M_L[k] = E_L + D_L[k+1] t_md[k],
+    // M_L[0] = 0, I_L = 0 (flank_device.py:155-162)
+    const float EL = pmove * 0.5f;
+    {
+        float d1 = d1r;
+#pragma unroll
+        for (int j = NPL - 1; j >= 0; --j) {
+            row.M(j) = EL + EL * d1 * TR(T_MD, j);
+            row.I(j) = 0.f;
+            d1 = 1.f + TR(T_DD, j) * d1;
+        }
+        if (v == 0) row.M(0) = 0.f;
+    }
+
+    // row i's combine on lanes 0-4 of the pair's first warp: fs is record
+    // i's slot, lb the Backward log special of the same lane's term; the
+    // results are staged and stored a 128-byte line at a time
+    float sB = 0.f, sE = 0.f, sO = 0.f;
+    auto combine = [&](int i, float fs, float lb) {
+        float t = 0.f;
+        if (lane < FL_SPEC)
+            t = nan0(expf(fs + (lane < 3 ? log_loop : 0.f) + lb - fwd));
+        const float tN = __shfl_sync(FULL_MASK, t, 0);
+        const float tJ = __shfl_sync(FULL_MASK, t, 1);
+        const float tC = __shfl_sync(FULL_MASK, t, 2);
+        const float tB = __shfl_sync(FULL_MASK, t, 3);
+        const float tE = __shfl_sync(FULL_MASK, t, 4);
+        const size_t r = rbase + i;
+        if (lane == (int)(r & 31)) {
+            sB = tB;
+            sE = tE;
+            sO = i >= 1 ? 1.0f - (tN + tJ + tC) : 0.f;
+        }
+        if ((r & 31) == 0 || i == 0) {
+            const size_t a = (r & ~(size_t)31) + lane;
+            if (a >= r && a <= rbase + L) {
+                ppB[a] = sB;
+                ppE[a] = sE;
+                mocc[a] = sO;
+            }
+        }
+    };
+    if (lead) {
+        // row L: N = J = B = -inf, C = move, E = move * e_move
+        const float fs = lane < FL_SPEC ? FS[L * FL_SPEC + lane] : 0.f;
+        combine(L, fs, lane == 2 ? logf(pmove)
+                       : lane == 4 ? logf(pmove) + logf(0.5f) : -INFINITY);
+    }
+
+    // ---- Backward, one row behind its scale ----
+    float Nu = 0.f, Ju = 0.f, Cu = pmove;   // the pending row's specials
+    float mxp = 0.f;                        // the pending row's lane max
+    float blogs = 0.f;
+    for (int i = L - 1; i >= 0; --i) {
+        if (i == L - 1 || (i & 31) == 31) cw = cq[min((i & ~31) + lane, L - 1)];
+        const float *e = el + (size_t)__shfl_sync(FULL_MASK, cw, i & 31) * Mpad;
+        const float fs = lead && lane < FL_SPEC ? FS[i * FL_SPEC + lane] : 0.f;
+        // pass A: mne of the pending row i + 1 (unscaled) into U, its B
+        // sum, and the lane's D_c chain with nothing entering
+        const float m0 = row.M(0) * e[0];
+        float mr = __shfl_down_sync(FULL_MASK, m0, 1);
+        if (lane == 31) mr = 0.f;
+        float Bu = 0.f, bl = 0.f, mn = mr;
+#pragma unroll
+        for (int j = NPL - 1; j >= 0; --j) {
+            const float mj = row.M(j) * e[j * S];
+            row.U(j) = mj;
+            Bu += TR(T_BM, j) * mj;
+            bl = mn * TR(T_DM, j) + TR(T_DD, j) * bl;
+            mn = mj;
+        }
+        float bi = bl;                      // inclusive scan, right to left
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+            const float pb = __shfl_down_sync(FULL_MASK, bi, 1 << t);
+            if (lane + (1 << t) < 32) bi += Bstep[t] * pb;
+        }
+        const float ebm = __shfl_down_sync(FULL_MASK, bi, 1);
+        float mxa = mxp, Bva = Bu;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            Bva += __shfl_xor_sync(FULL_MASK, Bva, o);
+            mxa = fmaxf(mxa, __shfl_xor_sync(FULL_MASK, mxa, o));
+        }
+        float Dcin = lane < 31 ? ebm : 0.f, min_ = mr;
+        if (G > 1) {
+            float *xr = XB(ph++);
+            if (lane == 0) {
+                float *x = xr + g * FL_XS;
+                x[0] = mxa;
+                x[1] = Bva;
+                x[2] = bi;                  // D_c at the warp's first state
+                x[3] = m0;                  // mne there
+            }
+            pair_barrier(bar, S);           // the one meeting of the row
+            mxa = 0.f;
+            Bva = 0.f;
+            for (int gg = 0; gg < G; ++gg) {
+                mxa = fmaxf(mxa, xr[gg * FL_XS]);
+                Bva += xr[gg * FL_XS + 1];
+            }
+            // D_c and mne at the first state of warp g + 1, right to left
+            float Dn = 0.f, mnx = 0.f;
+            for (int gg = G - 1; gg > g; --gg) {
+                const int sk = (NPL - 1) * S + gg * 32 + 31;
+                const float X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
+                Dn = xr[gg * FL_XS + 2] + sW[gg * FL_WS + 3] * X;
+                mnx = xr[gg * FL_XS + 3];
+            }
+            const int sk = (NPL - 1) * S + g * 32 + 31;
+            const float X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
+            Dcin = lane < 31 ? ebm + dX * X : Dn;
+            if (lane == 31) min_ = mnx;
+        }
+        // the pending row's scale (the terminal row is not scaled)
+        float iv = 1.f;
+        if (i < L - 1) {
+            const float scale = fmaxf(fmaxf(mxa, fmaxf(Nu, Cu)), FLANK_FLOOR);
+            iv = 1.0f / scale;
+            blogs += logf(scale);
+        }
+        const float Bv = Bva * iv;
+        const float Ni = Nu * iv * ploop + Bv * pmove;
+        const float Ji = Ju * iv * ploop + Bv * pmove;
+        const float Ci = Cu * iv * ploop;
+        const float Ei = Ci * 0.5f + Ji * 0.5f;
+        if (lead) {
+            const float x = lane == 0 ? Ni : lane == 1 ? Ji : lane == 2 ? Ci
+                            : lane == 3 ? Bv : Ei;
+            combine(i, fs, lane < FL_SPEC ? logf(x) + blogs : 0.f);
+        }
+        if (i == 0) break;                  // row 0's M and I are not needed
+        // pass B: row i from the scaled row i + 1, right to left
+        float Dn = iv * Dcin + Ei * d1r;    // D[k + 1] entering the lane
+        float mnext = iv * min_;            // mne[k + 1]
+        float mx = 0.f;
+#pragma unroll
+        for (int j = NPL - 1; j >= 0; --j) {
+            const float bis = row.I(j) * iv;
+            const float Mi = Ei + mnext * TR(T_MM, j) + bis * TR(T_MI, j) +
+                             Dn * TR(T_MD, j);
+            const float Ii = mnext * TR(T_IM, j) + bis * TR(T_II, j);
+            Dn = mnext * TR(T_DM, j) + Ei + TR(T_DD, j) * Dn;
+            mnext = row.U(j) * iv;
+            row.M(j) = Mi;
+            row.I(j) = Ii;
+            mx = fmaxf(mx, Mi);
+        }
+        mxp = mx;
+        Nu = Ni;
+        Ju = Ji;
+        Cu = Ci;
+    }
+#undef TR
+#undef XB
+}
+
+template <int NPL>
+static int launch_warp(const float *em_t, const float *tr_t, const float *d1_t,
+                       const int32_t *codes, const int32_t *qlens,
+                       const int32_t *slots, float *fwd, float *ppB, float *ppE,
+                       float *mocc, float *fspec, int H, int n_groups, int K,
+                       int Lstride, int W, int G, int Mpad, cudaStream_t st) {
+    const int WP = FL_THREADS / (32 * G) > 0 ? FL_THREADS / (32 * G) : 1;
+    const int threads = WP * G * 32;
+    if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = sizeof(float) * ((size_t)8 * Mpad + (size_t)2 * WP * G * FL_XS +
+                                         (size_t)WP * G * FL_WS);
+    cudaError_t err = set_smem((const void *)flank_warp_kernel<NPL>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flank_warp_kernel<NPL><<<(unsigned)((size_t)n_groups * H), threads, smem, st>>>(
+        em_t, tr_t, d1_t, codes, qlens, slots, fwd, ppB, ppE, mocc, fspec, H, K,
+        Lstride, W, G, Mpad);
+    return (int)cudaGetLastError();
+}
+
+// The warp-per-pair kernel on n_groups groups of query slots (slots
+// points at the launch's first; FL_THREADS / (32 G) slots a group) times
+// the H models; npl in {8, 16, 24, 32, 40, 48}. Returns a cudaError_t code.
+extern "C" int witch_flank_warp(const float *em_t, const float *tr_t,
+                                const float *d1_t, const int32_t *codes,
+                                const int32_t *qlens, const int32_t *slots,
+                                float *fwd, float *ppB, float *ppE, float *mocc,
+                                float *fspec, int H, int n_groups, int K,
+                                int Lstride, int W, int G, int npl, int Mpad,
+                                void *stream) {
+    if (H <= 0 || n_groups <= 0) return 0;
+    if (Mpad != 32 * G * npl) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define FL_ARGS em_t, tr_t, d1_t, codes, qlens, slots, fwd, ppB, ppE, mocc, \
+                fspec, H, n_groups, K, Lstride, W, G, Mpad, st
+    switch (npl) {
+    case 8: return launch_warp<8>(FL_ARGS);
+    case 16: return launch_warp<16>(FL_ARGS);
+    case 24: return launch_warp<24>(FL_ARGS);
+    case 32: return launch_warp<32>(FL_ARGS);
+    case 40: return launch_warp<40>(FL_ARGS);
+    case 48: return launch_warp<48>(FL_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef FL_ARGS
+}
+
+// ---------------------------------------------------------------------
+// The first version (wide models).
 
 __global__ void flank_kernel(const float *__restrict__ em,
                              const float *__restrict__ trans,

@@ -266,8 +266,9 @@ def _flank_chunk(bt, c, ql, tmm, tmi, tmd, tim, tii, tdm, bm, Af, Ab):
 
 def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
     """(fwd [Q, H], ppB, ppE, mocc [Q, H, Lc + 1]) f32 on the bank's
-    device: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    device: the CUDA kernel flank_layout picks for CUDA tensors (its
+    launches' CUDA-event ms added to _build.KERNEL_MS["flank"]), the plain
+    version for CPU tensors."""
     dev = bt.device
     if codes.device != dev or qlens.device != dev:
         raise ValueError("bank, codes and qlens must share a device")
@@ -286,17 +287,40 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
             for _ in range(3)]
     if Q == 0 or H == 0:
         return (fwd,) + tuple(outs)
-    chunk = max(1, min(Q, SCRATCH_BYTES // (H * W * 5 * 4)))
-    fspec = torch.empty(chunk * H * W * 5, dtype=torch.float32, device=dev)
+    layout, G, npl, Mpad = flank_layout(bt.Mp)
     lib = _build.lib()
     stream = _build.stream_ptr(dev)
-    for q0 in range(0, Q, chunk):
-        m = min(chunk, Q - q0)
-        rc = lib.witch_flank(
-            bt.em.data_ptr(), bt.trans.data_ptr(), codes[q0:].data_ptr(),
-            qlens[q0:].data_ptr(), fwd[q0:].data_ptr(),
-            outs[0][q0:].data_ptr(), outs[1][q0:].data_ptr(),
-            outs[2][q0:].data_ptr(), fspec.data_ptr(), H, m, bt.Mp, bt.K,
-            Lc, W, stream)
-        _build.check(rc, "flank")
+    ptrs = [x.data_ptr() for x in [fwd] + outs]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    if layout == 0:
+        em_t, tr_t, d1_t = flank_tables(bt, G, npl)
+        wp = max(1, FLANK_WARPS // G)
+        slots = cta_queries(qlens, wp)
+        n_groups = len(slots) // wp
+        per = max(1, SCRATCH_BYTES // (4 * wp * H * spec_floats(Lc)))
+        fspec = torch.empty(min(per, n_groups) * wp * H * spec_floats(Lc),
+                            dtype=torch.float32, device=dev)
+        for g0 in range(0, n_groups, per):
+            rc = lib.witch_flank_warp(
+                em_t.data_ptr(), tr_t.data_ptr(), d1_t.data_ptr(),
+                codes.data_ptr(), qlens.data_ptr(), slots[g0 * wp:].data_ptr(),
+                *ptrs, fspec.data_ptr(), H, min(per, n_groups - g0), bt.K,
+                Lc, W, G, npl, Mpad, stream)
+            _build.check(rc, "flank")
+    else:
+        chunk = max(1, min(Q, SCRATCH_BYTES // (H * W * SPEC * 4)))
+        fspec = torch.empty(chunk * H * W * SPEC, dtype=torch.float32,
+                            device=dev)
+        for q0 in range(0, Q, chunk):
+            rc = lib.witch_flank(
+                bt.em.data_ptr(), bt.trans.data_ptr(), codes[q0:].data_ptr(),
+                qlens[q0:].data_ptr(), fwd[q0:].data_ptr(),
+                outs[0][q0:].data_ptr(), outs[1][q0:].data_ptr(),
+                outs[2][q0:].data_ptr(), fspec.data_ptr(), H,
+                min(chunk, Q - q0), bt.Mp, bt.K, Lc, W, stream)
+            _build.check(rc, "flank")
+    ev[1].record()
+    ev[1].synchronize()
+    _build.KERNEL_MS["flank"] += ev[0].elapsed_time(ev[1])
     return (fwd,) + tuple(outs)
