@@ -3,9 +3,9 @@
     python3 chip_smoke.py            # needs one CUDA card, exits 0 on success
 
 Phases:
-  1. card name and power limit; nvcc build of the four CUDA kernels (one
-     nvcc per source, in parallel) and the native host engine's build,
-     each timed;
+  1. card name and power limit, the host's os.cpu_count(); nvcc build of
+     the four CUDA kernels (one nvcc per source, in parallel) and the
+     native host engine's build, each timed;
   2. each kernel against its plain PyTorch version on the card at
      main-path shapes, and against the native f64 engine:
        forward  bench_assets.npz grid (141 models x 500 queries, Mp 1,312
@@ -14,9 +14,12 @@ Phases:
                 inputs (Mp 416) and (4d) dna1k's (the kernel's ms at
                 those shapes; 100 queries against plain), <= 1e-3; the
                 wide widths in 2e
-       flank    (2d) the same grid: fwd, ppB, ppE, mocc within 2e-3 of
-                plain; three-way gate decisions equal except for pairs
-                whose rows sit within 1e-3 of RT1, RT2 or RT3
+       flank    (2d) the same grid (both banks on the warp-per-pair
+                kernel): fwd within 5e-3 nats and ppB, ppE, mocc within
+                2e-3 of plain; three-way gate decisions equal except for
+                pairs whose rows sit within 1e-3 of RT1, RT2 or RT3; the
+                layout of each width and the bound of its outputs and
+                stored specials
        null2    the envelopes of the amino500 gate: envsc, useI, usetot,
                 n2dot within 1e-4 relative (|d| / max(|ref|, 1e-2));
                 assembled sbias/senv within 2e-3 bits and sbsum 5e-3 of
@@ -29,9 +32,10 @@ Phases:
                 1,568): ms, launches and bounds over all of them, and a
                 seeded sample (the 64 longest, 64 at random) held so;
        wide     (2e) a bank of a 8,000-state and a 16,384-state model
-                (Mp 8,096 and 16,416: OA's first version, null2 rows in
-                device memory, forward's second layout): all four
-                kernels with the tolerances above, vs plain and native;
+                (Mp 8,096 and 16,416: OA's and flank's first versions,
+                null2 rows in device memory, forward's second layout):
+                all four kernels with the tolerances above, vs plain and
+                native;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
      the same with --full-search-results 1 (600/600 rows, the flank
@@ -49,7 +53,8 @@ Phases:
      backbone with --full-search-results 1 on its first 60 queries, a
      grid the prefilter drops pairs of: every query placed or ignored,
      and full_search_replay (the path's flank inputs through kernel and
-     plain with the 2d bounds and decisions, the copied rows, 500
+     plain with the 2d bounds and decisions, every width on the
+     warp-per-pair kernel, its ms and bounds, the copied rows, 500
      sampled dropped pairs unreported by native evaluate_targets, 300
      sampled kept pairs equal between native domain definition on the
      device rows and on its own f64 rows); then scenario C on the
@@ -69,7 +74,9 @@ Phases:
      at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
      at 34 TFLOP/s, its f64 rate, and its bytes, inputs read once and
      outputs written once, at 3.35 TB/s; OA's entry also the dna1k
-     replay's and its stored rows' bound, 17 B per state-row), the
+     replay's and its stored rows' bound, 17 B per state-row; flank's the
+     full-search replays', the bound of its outputs and stored specials,
+     rows_bytes_ms, and its layout at each width), the
      nvidia-smi line, a check that no module of JAX or witch_tpu was
      loaded, and as the last line {"ok": true, "device": {...}}.
 
@@ -165,6 +172,16 @@ def grid_cells(bt, lens):
     import numpy as np
     return float(np.asarray(bt.M, np.float64).sum()) * float(
         np.asarray(lens, np.float64).sum())
+
+
+def flank_rows_bytes(bt, codes, lens):
+    """Bytes the flank kernel must move beyond its inputs on a grid: per
+    pair the three output rows, 4 B x (Lc + 1) each, and the stored
+    Forward specials, 20 B a row written and read back."""
+    import numpy as np
+    L = np.asarray(lens, np.float64)
+    return bt.H * (12.0 * len(L) * (np.asarray(codes).shape[1] + 1)
+                   + 40.0 * float((L + 1).sum()))
 
 
 def cuda_ms(fn, reps):
@@ -1000,7 +1017,8 @@ def phase_flank(banks_bench, codes, lens, dev, result):
     import numpy as np
     import torch
     from witch_tpu_torch.device import bank_to_torch
-    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+    from witch_tpu_torch.ops.flank import (flank_layout, flank_rows,
+                                           flank_rows_ref)
 
     from witch_tpu_torch.native import _domaindef, set_trace_alphabet
 
@@ -1009,7 +1027,8 @@ def phase_flank(banks_bench, codes, lens, dev, result):
     ln = torch.from_numpy(lens).to(dev)
     err_fwd = err_rows = ms = plain_ms = 0.0
     n_pairs = n_near = n_diff = n_diff_far = n_kept = 0
-    t_host = cells = nbytes = 0.0
+    t_host = cells = nbytes = rbytes = 0.0
+    layouts = {}
     dropped = []                 # (bank, row, query) the prefilter drops
     for b in banks_bench:
         bt = bank_to_torch(b, dev)
@@ -1017,6 +1036,8 @@ def phase_flank(banks_bench, codes, lens, dev, result):
         cells += grid_cells(bt, lens)
         nbytes += table_bytes(bt) + 4 * codes.size + 4 * QH * (
             1 + 3 * (codes.shape[1] + 1))
+        rbytes += flank_rows_bytes(bt, codes, lens)
+        layouts[bt.Mp] = flank_layout(bt.Mp)
         k = flank_rows(bt, c, ln)
         p = flank_rows_ref(bt, c, ln, elems=1 << 26)
         torch.cuda.synchronize()
@@ -1035,13 +1056,17 @@ def phase_flank(banks_bench, codes, lens, dev, result):
         n_diff_far += far
         n_kept += int((dk >= 0).sum())
         dropped += [(b, int(h), int(q)) for q, h in np.argwhere(dk < 0)]
-        say("  bank H=%d Mp=%d: |dfwd| %.3g nats, |drows| %.3g"
-            % (bt.H, bt.Mp, err_fwd, err_rows))
+        say("  bank H=%d Mp=%d (layout, G, npl, Mpad %s): |dfwd| %.3g "
+            "nats, |drows| %.3g" % (bt.H, bt.Mp, layouts[bt.Mp], err_fwd,
+                                    err_rows))
     say("  grid %d pairs: kernel %.2f ms, plain %.2f ms; %d pairs kept "
         "(decision >= 0); %d pairs with rows within 1e-3 of RT1/RT2; "
         "%d decisions differ, %d of them not near RT1/RT2/RT3 (host "
         "classification %.1f s)" % (n_pairs, ms, plain_ms, n_kept, n_near,
                                     n_diff, n_diff_far, t_host))
+    check(all(x[0] == 0 for x in layouts.values()),
+          "flank: the warp-per-pair kernel (layout 0) on both bench banks "
+          "%s" % layouts)
     check(err_fwd <= 5e-3 and err_rows <= 2e-3,
           "flank kernel vs plain: |dfwd| %.3g <= 5e-3 nats, |drows| %.3g "
           "<= 2e-3" % (err_fwd, err_rows))
@@ -1071,7 +1096,8 @@ def phase_flank(banks_bench, codes, lens, dev, result):
     result["flank"] = dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
                            plain_ms=plain_ms, near_threshold=n_near,
                            decisions_differ=n_diff, cells=cells,
-                           bytes=nbytes)
+                           bytes=nbytes, layouts=layouts,
+                           rows_bytes_ms=rbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def _wide_problem(seed=17):
@@ -1147,9 +1173,11 @@ def phase_wide(rec, dev, result):
           "above-guard mismatches vs plain %d, vs native %d; finite margins "
           "within %.3g <= 1e-4 of plain"
           % (mps, sum(map(len, queries)), bad_p, bad_n, dmax))
-    # forward and flank keep 3 rows in shared memory (197 KB at Mp 16,416)
+    # forward's second layout and flank's first version keep 3 rows in
+    # shared memory (197 KB at Mp 16,416)
     import torch
-    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+    from witch_tpu_torch.ops.flank import (flank_layout, flank_rows,
+                                           flank_rows_ref)
     from witch_tpu_torch.ops.forward import LN2, forward_nats, \
         forward_nats_ref
     qall = [q for qs in queries for q in qs]
@@ -1167,10 +1195,11 @@ def phase_wide(rec, dev, result):
         e_ff = max(e_ff, float((k[0] - p[0]).abs().max()))
         e_fr = max(e_fr, max(float((a - b_).abs().max())
                              for a, b_ in zip(k[1:], p[1:])))
-    check(e_fw <= 1e-3 and e_ff <= 5e-3 and e_fr <= 2e-3,
-          "forward and flank at Mp %s vs plain: |dbits| %.3g <= 1e-3, "
-          "flank |dfwd| %.3g <= 5e-3 nats, |drows| %.3g <= 2e-3"
-          % (mps, e_fw, e_ff, e_fr))
+    check(e_fw <= 1e-3 and e_ff <= 5e-3 and e_fr <= 2e-3
+          and all(flank_layout(bt.Mp)[0] == 1 for bt in banks_t),
+          "forward and flank (its first version, layout 1) at Mp %s vs "
+          "plain: |dbits| %.3g <= 1e-3, flank |dfwd| %.3g <= 5e-3 nats, "
+          "|drows| %.3g <= 2e-3" % (mps, e_fw, e_ff, e_fr))
     result["oa_wide"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
                              Mp=max(mps))
     # null2: the port's device gate on these pairs, replayed by phase_null2
@@ -1217,7 +1246,8 @@ def full_search_replay(rec, dev, label, need_drops):
     import torch
     from witch_tpu_torch.hmm.profile import configure
     from witch_tpu_torch.native import _domaindef
-    from witch_tpu_torch.ops.flank import flank_rows, flank_rows_ref
+    from witch_tpu_torch.ops.flank import (flank_layout, flank_rows,
+                                           flank_rows_ref)
     from witch_tpu_torch.pipeline import _native_args
 
     ens, indices, qcodes, drop = rec.full[-1]
@@ -1230,9 +1260,14 @@ def full_search_replay(rec, dev, label, need_drops):
     dec_k = np.full((Q, H), -1, np.int8)
     near_j = np.zeros((Q, H), bool)
     plain_rows = {}
-    err_fwd = err_rows = ms = plain_ms = 0.0
+    err_fwd = err_rows = ms = plain_ms = cells = nbytes = rbytes = 0.0
     n_diff = n_far = 0
+    layouts = {bt.Mp: flank_layout(bt.Mp) for bt in banks_t}
     for bt, cols in zip(banks_t, bank_cols):
+        cells += grid_cells(bt, lens)
+        nbytes += table_bytes(bt) + 4 * np.asarray(codes).size \
+            + 4 * len(lens) * bt.H * (1 + 3 * (np.asarray(codes).shape[1] + 1))
+        rbytes += flank_rows_bytes(bt, codes, lens)
         k = flank_rows(bt, c, ln)
         p = flank_rows_ref(bt, c, ln, elems=1 << 26)
         torch.cuda.synchronize()
@@ -1252,10 +1287,17 @@ def full_search_replay(rec, dev, label, need_drops):
                 plain_rows[j] = [x[:, r].cpu().numpy()
                                  for x in (p[3], p[1], p[2])]
         del k, p
-    say("  %d pairs: kernel %.2f ms, plain %.2f ms; %d pairs with rows "
-        "within 1e-3 of RT1/RT2; %d decisions differ from plain, %d of "
-        "them not near RT1/RT2/RT3" % (Q * H, ms, plain_ms,
-                                       int(near_j.sum()), n_diff, n_far))
+    b_ms, b_by = bound_ms("flank", cells, nbytes)
+    rows_ms = rbytes / HBM_BYTES_PER_S * 1e3
+    say("  %d pairs, layouts (layout, G, npl, Mpad) by width %s: kernel "
+        "%.2f ms, plain %.2f ms; bound %.3f ms (%s), outputs and stored "
+        "specials %.3f ms; %d pairs with rows within 1e-3 of RT1/RT2; %d "
+        "decisions differ from plain, %d of them not near RT1/RT2/RT3"
+        % (Q * H, layouts, ms, plain_ms, b_ms, b_by, rows_ms,
+           int(near_j.sum()), n_diff, n_far))
+    check(all(x[0] == 0 for x in layouts.values()),
+          "%s: the warp-per-pair flank kernel (layout 0) at every width"
+          % label)
     check(err_fwd <= 5e-3 and err_rows <= 2e-3,
           "%s: flank kernel vs plain on the path's inputs: |dfwd| %.3g <= "
           "5e-3 nats, |drows| %.3g <= 2e-3" % (label, err_fwd, err_rows))
@@ -1331,7 +1373,9 @@ def full_search_replay(rec, dev, label, need_drops):
           and dss < 5e-3, "%s: native domain definition on the device rows "
           "equals native evaluate_targets on %d kept pairs" % (label, n_cmp))
     return dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
-                plain_ms=plain_ms, pairs=Q * H, dropped=len(dq))
+                plain_ms=plain_ms, pairs=Q * H, dropped=len(dq),
+                bound_ms=b_ms, bound_by=b_by, rows_bytes_ms=rows_ms,
+                layouts=layouts)
 
 
 def phase_full_search(tmp, rec, dev, result):
@@ -1494,6 +1538,7 @@ def main():
     t_start = time.time()
     smi = smi_line()
     say("card:", smi)
+    say("card host: os.cpu_count() %d" % os.cpu_count())
     dev = torch.device("cuda")
     from witch_tpu_torch import _build
     t0 = time.time()
@@ -1569,6 +1614,15 @@ def main():
         extras = ("bound_ms", "envelopes", "launches", "rows_bytes_ms")
         if name == "oa":
             k["rows_bytes_ms"] = r["rows_bytes_ms"]
+            extras += ("bound_by", "pairs")
+        if name == "flank":
+            # the stored specials' and outputs' bound, and the layout
+            # (layout, G, npl, Mpad) of each width it ran at
+            k["rows_bytes_ms"] = r["rows_bytes_ms"]
+            k["layouts"] = {str(mp): list(v) for t in ("", "_full_search",
+                                                      "_full_search_dna")
+                            for mp, v in result.get(name + t, {}).get(
+                                "layouts", {}).items()}
             extras += ("bound_by", "pairs")
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
                     "4d_dna1k", "4e_dna1k", "bench", "scenario_a"):

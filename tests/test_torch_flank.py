@@ -260,8 +260,10 @@ def test_flank_kernel_on_card_matches_plain():
 
 @pytest.mark.cuda
 def test_forward_and_flank_kernels_at_the_state_cap():
-    """A 16,384-state model (Mp 16,416): the forward and flank kernels
-    keep three f32 rows in shared memory (197 KB of the 227 KB)."""
+    """A 16,384-state model (Mp 16,416): the forward kernel's second
+    layout and the flank kernel's first version (ops/flank.py:flank_layout
+    1, above the warp-per-pair kernel's widths) keep three f32 rows in
+    shared memory (197 KB of the 227 KB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from witch_tpu.core.alphabet import DNA
@@ -285,6 +287,8 @@ def test_forward_and_flank_kernels_at_the_state_cap():
     c, ln = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
     d = (forward_nats(bt, c, ln) - forward_nats_ref(bt, c, ln)).abs() / LN2
     assert float(d.max()) < 1e-3
+    from witch_tpu_torch.ops.flank import flank_layout
+    assert flank_layout(bt.Mp)[0] == 1
     k, p = flank_rows(bt, c, ln), flank_rows_ref(bt, c, ln)
     assert float((k[0] - p[0]).abs().max()) < 5e-3
     for a, b in zip(k[1:], p[1:]):

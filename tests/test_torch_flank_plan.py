@@ -161,3 +161,34 @@ def test_warp_kernel_matches_plain(M, Mp):
         assert float((a - b).abs().max()) <= 2e-3
     for q, L in enumerate(lens):                 # the tail is zero
         assert not any(x[q, :, L + 1:].any() for x in got[1:])
+
+
+@pytest.mark.cuda
+def test_warp_kernel_launches_split_by_scratch(monkeypatch):
+    """A scratch budget of one CTA's pairs splits the grid into one
+    launch per group of query slots; the rows equal those of one launch
+    exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from witch_tpu.hmm.bank import build_banks
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.device import bank_to_torch
+    import witch_tpu_torch.ops.flank as FL
+    from test_torch_forward import model_and_fragments
+    lens = [40, 1, 77, 12, 90, 5, 64, 33, 2, 90, 17, 50, 8, 71, 1, 29, 44]
+    core, codes, lens = model_and_fragments(300, 7, lens)
+    core2, _, _ = model_and_fragments(280, 8, [5])
+    bt = bank_to_torch(build_banks([core, core2], uniform=True,
+                                   n_buckets=2)[0], "cuda")
+    c = torch.from_numpy(codes).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    one = FL.flank_rows(bt, c, ln)
+    _, G, _, _ = FL.flank_layout(bt.Mp)
+    wp = FL.FLANK_WARPS // G
+    monkeypatch.setattr(FL, "SCRATCH_BYTES",
+                        4 * wp * bt.H * FL.spec_floats(codes.shape[1]))
+    _build.reset_launches()
+    split = FL.flank_rows(bt, c, ln)
+    assert _build.LAUNCHES["flank"] == -(-len(lens) // wp)
+    for a, b in zip(one, split):
+        assert torch.equal(a, b)

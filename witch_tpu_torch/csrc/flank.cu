@@ -22,9 +22,11 @@
 // state x query row: the Forward's 20 and the Backward's 20) at the
 // card's 67 TFLOP/s outside the tensor cores; its bytes (the outputs,
 // 12 B per row of the padded query length, and the stored specials,
-// 20 B per row written and read back) are ~100x less at 3.35 TB/s. The
-// grid is dense (tens of thousands of pairs), so the card's issue rate,
-// not one pair's per-row latency, sets the time, as for forward.cu.
+// 20 B per row written and read back) take ~40x less at 3.35 TB/s on the
+// bench grid (tools/flank_bench.py). The grid is dense (tens of thousands
+// of pairs), so the card's issue rate, not one pair's per-row latency,
+// sets the time, as for forward.cu: more warps a pair lose wherever the
+// grid fills the card (flank_bench.py --layouts).
 //
 // Two kernels, picked by width (ops/flank.py:flank_layout):
 //
@@ -365,8 +367,8 @@ __global__ void __launch_bounds__(FL_THREADS)
         if (i == L - 1 || (i & 31) == 31) cw = cq[min((i & ~31) + lane, L - 1)];
         const float *e = el + (size_t)__shfl_sync(FULL_MASK, cw, i & 31) * Mpad;
         const float fs = lead && lane < FL_SPEC ? FS[i * FL_SPEC + lane] : 0.f;
-        // pass A: mne of the pending row i + 1 (unscaled) into U, its B
-        // sum, and the lane's D_c chain with nothing entering
+        // pass A: mne of the pending row i + 1 (unscaled), its B sum, and
+        // the lane's D_c chain with nothing entering
         const float m0 = row.M(0) * e[0];
         float mr = __shfl_down_sync(FULL_MASK, m0, 1);
         if (lane == 31) mr = 0.f;
@@ -374,7 +376,6 @@ __global__ void __launch_bounds__(FL_THREADS)
 #pragma unroll
         for (int j = NPL - 1; j >= 0; --j) {
             const float mj = row.M(j) * e[j * S];
-            row.U(j) = mj;
             Bu += TR(T_BM, j) * mj;
             bl = mn * TR(T_DM, j) + TR(T_DD, j) * bl;
             mn = mj;
@@ -440,7 +441,9 @@ __global__ void __launch_bounds__(FL_THREADS)
             combine(i, fs, lane < FL_SPEC ? logf(x) + blogs : 0.f);
         }
         if (i == 0) break;                  // row 0's M and I are not needed
-        // pass B: row i from the scaled row i + 1, right to left
+        // pass B: row i from the scaled row i + 1, right to left (mne
+        // taken again from the pending row, which is not kept beside it:
+        // two rows of registers in the Backward, not three)
         float Dn = iv * Dcin + Ei * d1r;    // D[k + 1] entering the lane
         float mnext = iv * min_;            // mne[k + 1]
         float mx = 0.f;
@@ -451,7 +454,7 @@ __global__ void __launch_bounds__(FL_THREADS)
                              Dn * TR(T_MD, j);
             const float Ii = mnext * TR(T_IM, j) + bis * TR(T_II, j);
             Dn = mnext * TR(T_DM, j) + Ei + TR(T_DD, j) * Dn;
-            mnext = row.U(j) * iv;
+            mnext = row.M(j) * e[j * S] * iv;
             row.M(j) = Mi;
             row.I(j) = Ii;
             mx = fmaxf(mx, Mi);

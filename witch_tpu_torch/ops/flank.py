@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from .. import _build
@@ -292,7 +291,6 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
     stream = _build.stream_ptr(dev)
     ptrs = [x.data_ptr() for x in [fwd] + outs]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
     if layout == 0:
         em_t, tr_t, d1_t = flank_tables(bt, G, npl)
         wp = max(1, FLANK_WARPS // G)
@@ -301,6 +299,7 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
         per = max(1, SCRATCH_BYTES // (4 * wp * H * spec_floats(Lc)))
         fspec = torch.empty(min(per, n_groups) * wp * H * spec_floats(Lc),
                             dtype=torch.float32, device=dev)
+        ev[0].record()
         for g0 in range(0, n_groups, per):
             rc = lib.witch_flank_warp(
                 em_t.data_ptr(), tr_t.data_ptr(), d1_t.data_ptr(),
@@ -312,6 +311,7 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
         chunk = max(1, min(Q, SCRATCH_BYTES // (H * W * SPEC * 4)))
         fspec = torch.empty(chunk * H * W * SPEC, dtype=torch.float32,
                             device=dev)
+        ev[0].record()
         for q0 in range(0, Q, chunk):
             rc = lib.witch_flank(
                 bt.em.data_ptr(), bt.trans.data_ptr(), codes[q0:].data_ptr(),

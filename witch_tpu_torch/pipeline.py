@@ -279,16 +279,21 @@ def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
     from .hmm.profile import configure
     from .native import _domaindef
 
+    from . import _build
     from .hmm.flank_device import prefilter_grid
 
     Q, H = len(qcodes), len(indices)
     t0 = time.time()
+    k_ms, k_n = _build.KERNEL_MS["flank"], _build.LAUNCHES["flank"]
     dec, rows = prefilter_grid(
         banks_t, [[col_of[int(idx)] for idx in b.hmm_indices]
                   for b in banks], codes, lens, H)
     drop = dec < 0
+    k_ms = _build.KERNEL_MS["flank"] - k_ms
+    k_n = _build.LAUNCHES["flank"] - k_n
     Configs.runtime("  scoring: device gate prefilter dropped %d/%d pairs "
-                    "(s): %f" % (int(drop.sum()), Q * H, time.time() - t0))
+                    "(flank kernel %.2f ms, %d launches) (s): %f"
+                    % (int(drop.sum()), Q * H, k_ms, k_n, time.time() - t0))
     by_j = {j: [int(q) for q in rows[j][0]] for j in sorted(rows)}
     t0 = time.time()
 
