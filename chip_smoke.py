@@ -4,7 +4,7 @@
 
 Phases:
   1. card name and power limit, the host's os.cpu_count(); nvcc build of
-     the four CUDA kernels (one nvcc per source, in parallel) and the
+     the five CUDA kernels (one nvcc per source, in parallel) and the
      native host engine's build, each timed;
   2. each kernel against its plain PyTorch version on the card at
      main-path shapes, and against the native f64 engine:
@@ -36,8 +36,18 @@ Phases:
                 null2 rows in device memory, forward's second layout):
                 all four kernels with the tolerances above, vs plain and
                 native;
+       bench    (2g) witch_tpu_torch/tools/bench.py in process: bench.py's
+                JSON line (the full grid through the forward kernel, the
+                native domain definition rate), its seconds_per_full_grid
+                beside 2a's kernel ms;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
+     the align stage joined the speculative OA start; again with
+     WITCH_TPU_SPEC_OA=0 (600/600, no speculative join); (3d) a resident
+     server (python -m witch_tpu_torch serve) answers amino500 twice with
+     outputs byte-identical to phase 3's, the three kernels launched in
+     it, and a bench job with bench_tier's keys, each job's seconds
+     beside phase 3's wall, the server killed at the end;
      the same with --full-search-results 1 (600/600 rows, the flank
      kernel launched, full_search_replay below) and with -m old-witch
      (every query placed with its residues or ignored, 0 above-guard OA
@@ -46,7 +56,8 @@ Phases:
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
      above the guard, all three kernels launched, the gate line (null2's
-     device time, kernel ms and launches); the query rows against the JAX
+     device time, kernel ms and launches), the speculative join and its
+     selection-drift count; the query rows against the JAX
      package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
      equal, at least DNA1K_JAX_MIN, and for a differing row the device
      and native pre-score rankings of its top models; then (4c) the same
@@ -68,7 +79,12 @@ Phases:
      sequence in the output with its residues (or ignored), masked rows
      flush, the gate line; (5b) its gate envelopes replayed through the
      null2 kernel (ms, launches, bound) and, on 1,024 seeded envelopes,
-     its plain version within 1e-4 relative;
+     its plain version within 1e-4 relative; (5c) the anchor embedding
+     of its 100 backbone sequences on the device path (2,400 sequence-
+     anchor pairs) through the pair-HMM kernel and its plain version, E
+     within 2e-4, the kernel's ms, plain's and the bound at the path's
+     own calls; (5d) scenario A again with WITCH_TPU_DEVICE_EMBED=1:
+     phase 5's checks and the pair-HMM kernel launched;
   6. {"kernels": [...]} JSON (each kernel's launches on the main path,
      error, ms and plain ms, and its bound: the larger of its operations
      at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
@@ -76,7 +92,8 @@ Phases:
      outputs written once, at 3.35 TB/s; OA's entry also the dna1k
      replay's and its stored rows' bound, 17 B per state-row; flank's the
      full-search replays', the bound of its outputs and stored specials,
-     rows_bytes_ms, and its layout at each width), the
+     rows_bytes_ms, and its layout at each width; pairhmm's main path is
+     scenario A with WITCH_TPU_DEVICE_EMBED=1), the
      nvidia-smi line, a check that no module of JAX or witch_tpu was
      loaded, and as the last line {"ok": true, "device": {...}}.
 
@@ -109,6 +126,7 @@ WIDE_M = (8000, 16384)              # phase 2e model sizes
 DNA_FULL = 60                       # dna1k queries of the full search
 SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
+WALL = {}               # CLI wall seconds by run label
 # dna1k against the JAX package (tests/golden/ref_dna1k.queries.masked.
 # fasta.gz): the query rows equal on the first chip run (PERF.md), below
 # which the check fails; the JAX run ignored no query; rows diagnosed
@@ -122,11 +140,14 @@ DNA1K_DIAG = 20
 # 3), flank 40 (that Forward and a Backward of the same count), null2 45
 # (Forward, Backward, 5 for the posterior state usage), oa 58 (Forward
 # and Backward 40 and the posteriors 4 at the f32 rate, the OA DP's 14 at
-# the f64 rate)
+# the f64 rate), pairhmm 22 per cell of A x B (the previous row's three
+# reads rescaled 3, M 6, X 3, the chunk's Y map 4, Y 3, the row max 3;
+# csrc/pairhmm.cu)
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58}
+OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58,
+                "pairhmm": 22}
 F64_OPS_PER_CELL = {"oa": 14}
 # bytes of stored scratch per state-row, at the kernel's padded width:
 # null2 16 (Forward M and I written and read back), oa 17 (Backward bM and
@@ -203,24 +224,12 @@ def read_fasta_dict(path):
     return dict(read_fasta(path))
 
 
-def native_args_from_bank(bank, h):
-    """msc + 8 transition rows (ln) of bank row h, from its odds."""
-    import numpy as np
-    M = int(bank.M[h])
-    with np.errstate(divide="ignore"):
-        msc = np.log(bank.em_odds[h, :M + 1].astype(np.float64))
-        tr = [np.log(getattr(bank, a)[h, :M + 1].astype(np.float64))
-              for a in ("t_mm", "t_mi", "t_md", "t_im", "t_ii", "t_dm",
-                        "t_dd", "bm")]
-    return [np.ascontiguousarray(msc)] + [np.ascontiguousarray(t)
-                                          for t in tr]
-
-
 # ---------------------------------------------------------------------
 def phase_forward(dev, result):
     import numpy as np
     import torch
-    from witch_tpu_torch.hmm.bank import ProfileBank
+    from witch_tpu_torch.benchlib import (load_bench_assets,
+                                          native_args_from_bank)
     from witch_tpu_torch.hmm.profile import null1_score
     from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.device import bank_to_torch
@@ -228,12 +237,7 @@ def phase_forward(dev, result):
                                              forward_nats_ref, null1_bits)
 
     say("== phase 2a: forward kernel vs plain, bench_assets grid")
-    z = np.load(os.path.join(ROOT, "bench_assets.npz"))
-    fields = ("em_odds", "t_mm", "t_mi", "t_md", "t_im", "t_ii", "t_dm",
-              "t_dd", "bm", "M", "nseq", "hmm_indices")
-    banks = [ProfileBank(**{f: z["bank%d_%s" % (i, f)] for f in fields},
-                         multihit=bool(z["bank%d_multihit" % i]))
-             for i in range(int(z["n_banks"]))]
+    banks, z = load_bench_assets(os.path.join(ROOT, "bench_assets.npz"))
     codes, lens = z["codes"], z["lens"]
     c = torch.from_numpy(codes).to(dev)
     ln = torch.from_numpy(lens).to(dev)
@@ -434,19 +438,38 @@ def print_breakdown(outdir):
     return lines
 
 
+def amino_argv(outdir, extra=()):
+    pre = AMINO[0]
+    return ["-b", os.path.join(GOLD, pre + ".backbone.fasta"),
+            "-e", os.path.join(GOLD, pre + ".backbone.tre"),
+            "-q", os.path.join(GOLD, pre + ".queries.fasta"),
+            "-d", outdir, "-o", "aligned.fasta", "--molecule",
+            "amino"] + list(extra)
+
+
+def spec_join(outdir):
+    """(the align stage's speculative join line, its selection-drift
+    count) of a CLI run, or (None, None) when the align stage ran
+    without the speculative start."""
+    import re
+    for ln in open(os.path.join(outdir, "runtime_breakdown.txt")):
+        m = re.search(r"speculative device OA join \((\d+) selection-drift",
+                      ln)
+        if m:
+            return ln.split("\t", 1)[-1].strip(), int(m.group(1))
+    return None, None
+
+
 def run_amino(outdir, extra, label, oracle=True):
     """amino500 golden through witch_runner with `extra` flags; checks
     600/600 masked rows against the oracle when `oracle`, else reports
     the count. Returns the launches of the run."""
     from witch_tpu_torch.io.fasta import read_fasta
     pre, n_rows = AMINO
-    out, dt, launches = run_cli([
-        "-b", os.path.join(GOLD, pre + ".backbone.fasta"),
-        "-e", os.path.join(GOLD, pre + ".backbone.tre"),
-        "-q", os.path.join(GOLD, pre + ".queries.fasta"),
-        "-d", outdir, "-o", "aligned.fasta", "--molecule", "amino"] + extra)
+    out, dt, launches = run_cli(amino_argv(outdir, extra))
     print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
+    WALL[label] = dt
     mine = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
     with gzip.open(os.path.join(
             GOLD, pre + ".aligned.masked.fasta.gz"), "rt") as f:
@@ -464,11 +487,130 @@ def run_amino(outdir, extra, label, oracle=True):
 
 def phase_amino(tmp):
     say("== phase 3: amino500 golden end to end (witch_runner)")
-    launches = run_amino(os.path.join(tmp, "amino500"), [], "amino500")
+    outdir = os.path.join(tmp, "amino500")
+    launches = run_amino(outdir, [], "amino500")
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
           "amino500: forward, null2 and oa launched on the main path %s"
           % launches)
+    join, drift = spec_join(outdir)
+    check(join is not None, "amino500: the align stage joined the "
+          "speculative OA start (%s selection-drift host aligns): %s"
+          % (drift, join))
+    say("== phase 3 again with WITCH_TPU_SPEC_OA=0 (no speculative start)")
+    os.environ["WITCH_TPU_SPEC_OA"] = "0"
+    try:
+        off_dir = os.path.join(tmp, "amino500_spec_off")
+        off = run_amino(off_dir, [], "amino500 WITCH_TPU_SPEC_OA=0")
+    finally:
+        del os.environ["WITCH_TPU_SPEC_OA"]
+    check(spec_join(off_dir)[0] is None and off["oa"] > 0,
+          "amino500 WITCH_TPU_SPEC_OA=0: the align stage launched the OA "
+          "kernel itself, no speculative join %s" % off)
+    say("  amino500 wall: speculative start on %.2f s, off %.2f s"
+        % (WALL["amino500"], WALL["amino500 WITCH_TPU_SPEC_OA=0"]))
     return launches
+
+
+def phase_serve(tmp):
+    """A resident server (python -m witch_tpu_torch serve) on the card:
+    amino500 twice, byte-identical to phase 3's outputs, then a bench
+    job; the server is killed at the end whatever happens. The same run
+    as a fresh CLI process (WITCH_TPU_NO_DAEMON=1), while the server
+    idles, gives what a server job saves."""
+    from witch_tpu_torch.server import server_alive, submit
+
+    say("== phase 3d: serve: amino500 twice and a bench job")
+    jobs = os.path.join(tmp, "jobs")
+    env = dict(os.environ)
+    env.pop("WITCH_TPU_SPEC_OA", None)
+    log_path = os.path.join(tmp, "server.log")
+    t0 = time.time()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "witch_tpu_torch", "serve", "-d", jobs,
+             "--max-idle", "300"], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+    try:
+        while not server_alive(jobs):
+            if proc.poll() is not None or time.time() - t0 > 180:
+                raise AssertionError("server did not start (rc %s): %s" % (
+                    proc.poll(), open(log_path).read()[-3000:]))
+            time.sleep(0.2)
+        say("  server up (heartbeat) in %.2f s" % (time.time() - t0))
+        ref = os.path.join(tmp, "amino500")
+        # what a server job saves: the same run as a fresh CLI process
+        fresh = os.path.join(tmp, "fresh_amino500")
+        t1 = time.time()
+        r = subprocess.run([sys.executable, "-m", "witch_tpu_torch"]
+                           + amino_argv(fresh), cwd=ROOT, env=dict(
+                               env, WITCH_TPU_NO_DAEMON="1"),
+                           capture_output=True, text=True, timeout=600)
+        WALL["fresh process"] = time.time() - t1
+        check(r.returncode == 0 and open(os.path.join(
+            fresh, "aligned.fasta"), "rb").read() == open(os.path.join(
+                ref, "aligned.fasta"), "rb").read(),
+            "a fresh CLI process: aligned.fasta byte-identical to phase "
+            "3's, %.2f s (rc %d)" % (WALL["fresh process"], r.returncode))
+        first = None
+        for k in range(2):
+            outdir = os.path.join(tmp, "serve_amino500_%d" % k)
+            t1 = time.time()
+            res = submit(jobs, amino_argv(outdir), timeout_s=600,
+                         dead_server_s=120)
+            wait = time.time() - t1
+            check(res["ok"], "serve job %d ok (%s)" % (k, res.get("error")))
+            same = [open(os.path.join(outdir, f), "rb").read()
+                    == open(os.path.join(ref, f), "rb").read()
+                    for f in ("aligned.fasta", "aligned.masked.fasta")]
+            check(all(same), "serve job %d: aligned.fasta and "
+                  "aligned.masked.fasta byte-identical to phase 3's" % k)
+            check(all(res["launches"][n] > 0 for n in (
+                "forward", "null2", "oa")),
+                "serve job %d: forward, null2 and oa launched in the server "
+                "%s" % (k, res["launches"]))
+            say("  job %d: %.2f s in the server (%.2f s submit to done); "
+                "phase 3 in process %.2f s; a fresh CLI process %.2f s"
+                % (k, res["seconds"], wait, WALL["amino500"],
+                   WALL["fresh process"]))
+            first = first or res["launches"]
+        t1 = time.time()
+        res = submit(jobs, [], timeout_s=600, dead_server_s=120, extra={
+            "kind": "bench", "assets": os.path.join(ROOT, "bench_assets.npz"),
+            "reps": 3})
+        check(res["ok"] and set(res["output"]) == {
+            "dt", "padded_cells", "total_pairs", "true_cells", "backend",
+            "warm_s"} and res["output"]["backend"] == "cuda",
+            "serve bench job: bench_tier's keys on cuda (%s)"
+            % (res.get("error") or res["output"]))
+        say("  bench job: %.2f s in the server, grid %.6f s, warm %.3f s"
+            % (res["seconds"], res["output"]["dt"],
+               res["output"]["warm_s"]))
+    finally:
+        proc.kill()
+        proc.wait()
+    say("  server log: " + " | ".join(
+        open(log_path).read().strip().splitlines()[-4:]))
+    return first
+
+
+def phase_bench(result):
+    """witch_tpu_torch/tools/bench.py in this process: its JSON line,
+    beside phase 2a's kernel ms of the same grid."""
+    import importlib.util
+    say("== phase 2g: bench tier (witch_tpu_torch/tools/bench.py)")
+    spec = importlib.util.spec_from_file_location(
+        "witch_bench_tool", os.path.join(ROOT, "witch_tpu_torch", "tools",
+                                         "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    line = mod.main(["--reps", "3"])
+    check(set(line) == {"metric", "value", "unit", "vs_baseline",
+                        "gcups_true", "gcups_padded", "seconds_per_full_grid",
+                        "backend", "domaindef_pairs_per_s_4t"},
+          "bench line has bench.py's keys")
+    say("  seconds_per_full_grid %.6f s; phase 2a's two banks' kernel ms "
+        "%.3f ms" % (line["seconds_per_full_grid"], result["forward"]["ms"]))
+    result["bench_line"] = line
 
 
 def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
@@ -618,6 +760,7 @@ def oa_padded_cells(bt, lst):
 
 def phase_oa(rec, banks_bench, codes, lens, dev, result):
     import numpy as np
+    from witch_tpu_torch.benchlib import native_args_from_bank
     from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.device import bank_to_torch
 
@@ -825,6 +968,9 @@ def phase_dna(tmp, rec):
     ens = [ln.split("\t", 1)[-1].strip() for ln in open(
         os.path.join(outdir, "log.txt")) if "Ensemble of" in ln]
     say("  " + " | ".join(ens + gate))
+    join, drift = spec_join(outdir)
+    check(join is not None, "dna1k: the align stage joined the speculative "
+          "OA start, %s selection-drift host aligns" % drift)
     dna1k_vs_jax(rec, data, masked, ignored)
     return launches
 
@@ -1016,6 +1162,7 @@ def _compare_decisions(k, p, lens, ln):
 def phase_flank(banks_bench, codes, lens, dev, result):
     import numpy as np
     import torch
+    from witch_tpu_torch.benchlib import native_args_from_bank
     from witch_tpu_torch.device import bank_to_torch
     from witch_tpu_torch.ops.flank import (flank_layout, flank_rows,
                                            flank_rows_ref)
@@ -1129,6 +1276,7 @@ def _wide_problem(seed=17):
 
 def phase_wide(rec, dev, result):
     import numpy as np
+    from witch_tpu_torch.benchlib import native_args_from_bank
     from witch_tpu_torch.hmm.profile import configure
     from witch_tpu_torch.native import _domaindef, set_trace_alphabet
     import witch_tpu_torch.pipeline as pl
@@ -1489,13 +1637,15 @@ def phase_scenario_c(tmp, rec):
     return launches
 
 
-def phase_scenario_a(tmp, rec):
+def scenario_a_input(tmp):
+    """Phase 5's input (made once): 300 ungapped full-length rows and 100
+    fragments of make_scale_dataset.py --seed 20261016."""
     from witch_tpu_torch.io.fasta import read_fasta, write_fasta
-
-    say("== phase 5: scenario A, -i (300 full-length + 100 fragments), "
-        "--backbone-size 100")
     data = os.path.join(tmp, "scenA")
-    n_full, n_frag, n_bb = SCEN_A
+    inp = os.path.join(data, "input.fasta")
+    if os.path.exists(inp):
+        return inp
+    n_full, n_frag, _ = SCEN_A
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),
                     "--n", str(n_full), "--queries", str(n_frag), "--seed",
@@ -1505,28 +1655,116 @@ def phase_scenario_a(tmp, rec):
         os.path.join(data, "backbone.aln.fasta.gz"))]
     recs += [(n, s.upper()) for n, s in read_fasta(
         os.path.join(data, "queries.fasta"))]
-    inp = os.path.join(data, "input.fasta")
     write_fasta(recs, inp)
-    outdir = os.path.join(tmp, "scenA_out")
+    return inp
+
+
+def phase_scenario_a(tmp, rec, label="scenario A", out="scenA_out"):
+    from witch_tpu_torch.io.fasta import read_fasta
+
+    say("== phase 5: %s, -i (300 full-length + 100 fragments), "
+        "--backbone-size 100" % label)
+    inp = scenario_a_input(tmp)
+    n_in = sum(1 for _ in read_fasta(inp))
+    outdir = os.path.join(tmp, out)
     rec.clear()
-    out, dt, launches = run_cli(["-i", inp, "-d", outdir, "-o",
-                                 "aligned.fasta", "--backbone-size",
-                                 str(n_bb)])
+    _, dt, launches = run_cli(["-i", inp, "-d", outdir, "-o",
+                               "aligned.fasta", "--backbone-size",
+                               str(SCEN_A[2])])
     lines = print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
     say("  " + " | ".join(ln.split("\t", 1)[-1].strip() for ln in lines
                           if "device gate" in ln))
     placed, n_ign, bad = _query_rows_ok(outdir, inp)
-    check(not bad and placed + n_ign == len(recs),
-          "scenario A: all %d input sequences in the output with their "
-          "residues (%d) or ignored (%d)" % (len(recs), placed, n_ign))
+    check(not bad and placed + n_ign == n_in,
+          "%s: all %d input sequences in the output with their "
+          "residues (%d) or ignored (%d)" % (label, n_in, placed, n_ign))
     masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
     widths = {len(v) for v in masked.values()}
-    check(len(widths) == 1, "scenario A: %d masked rows flush (width %s)"
-          % (len(masked), widths))
+    check(len(widths) == 1, "%s: %d masked rows flush (width %s)"
+          % (label, len(masked), widths))
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
-          "scenario A: forward, null2 and oa launched %s" % launches)
+          "%s: forward, null2 and oa launched %s" % (label, launches))
     return launches
+
+
+def phase_scenario_a_embed(tmp, rec):
+    """Scenario A again on phase 5's input with WITCH_TPU_DEVICE_EMBED=1:
+    phase 5's checks, and the pair-HMM kernel launched."""
+    os.environ["WITCH_TPU_DEVICE_EMBED"] = "1"
+    try:
+        launches = phase_scenario_a(
+            tmp, rec, "scenario A with WITCH_TPU_DEVICE_EMBED=1",
+            "scenA_embed_out")
+    finally:
+        del os.environ["WITCH_TPU_DEVICE_EMBED"]
+    check(launches["pairhmm"] > 0, "scenario A with WITCH_TPU_DEVICE_EMBED=1:"
+          " the pair-HMM kernel launched %d times" % launches["pairhmm"])
+    return launches
+
+
+def phase_embed(tmp, dev, result):
+    """The anchor embedding of scenario A's 100 backbone sequences (phase
+    5's backbone) on the device path: every (sequence, anchor) pair
+    through the kernel and through the plain version, E within 2e-4 (the
+    bar of tests/test_pairhmm_forward.py); the kernel's ms on the
+    path's own calls, plain's, and the bound."""
+    import numpy as np
+    import torch
+    import witch_tpu_torch.ops.pairhmm as ph
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.backbone_consistency import anchor_embedding
+    from witch_tpu_torch.core.alphabet import ALPHABETS
+    from witch_tpu_torch.io.fasta import read_fasta
+
+    say("== phase 5c: pair-HMM anchor embedding of scenario A's backbone, "
+        "kernel vs plain")
+    al = ALPHABETS["dna"]
+    codes = [al.encode(x.replace("-", "").upper()) for _, x in read_fasta(
+        os.path.join(tmp, "scenA_out", "backbone", "backbone.aln.fasta"))]
+    calls = []
+    kern = ph.pairhmm_forward_logodds
+
+    def recorded(*a):
+        calls.append(a)
+        return kern(*a)
+
+    n0, t0 = _build.LAUNCHES["pairhmm"], time.time()
+    ph.pairhmm_forward_logodds = recorded
+    try:
+        E_k = anchor_embedding(codes, al, use_device=True, device=dev)
+    finally:
+        ph.pairhmm_forward_logodds = kern
+    n_k, wall = _build.LAUNCHES["pairhmm"] - n0, time.time() - t0
+    ph.pairhmm_forward_logodds = ph.pairhmm_forward_logodds_plain
+    try:
+        E_p = anchor_embedding(codes, al, use_device=True, device=dev)
+    finally:
+        ph.pairhmm_forward_logodds = kern
+    n, A = E_k.shape
+    err = float(np.abs(E_k - E_p).max())
+    check(np.isfinite(E_k).all() and n == len(codes) and err <= 2e-4,
+          "pairhmm: anchor embedding [%d, %d] (%d pairs), kernel vs plain "
+          "max |dE| %.3g <= 2e-4, %d launches, %.2f s"
+          % (n, A, n * A, err, n_k, wall))
+    ms = plain_ms = cells = nbytes = dlo = 0.0
+    for a in calls:
+        cA, lA, cB, lB, em = a[:5]
+        k = kern(*a)
+        p = ph.pairhmm_forward_logodds_plain(*a)
+        torch.cuda.synchronize()
+        dlo = max(dlo, float((k - p).abs().max()))
+        ms += cuda_ms(lambda: kern(*a), 3)
+        plain_ms += cuda_ms(lambda: ph.pairhmm_forward_logodds_plain(*a), 1)
+        cells += float((lA.double() * (lB.double() + 1)).sum())
+        nbytes += 4 * (cA.numel() + cB.numel() + 3 * len(lA) + em.numel())
+    b_ms, b_by = bound_ms("pairhmm", cells, nbytes)
+    say("  %d launches at the path's shapes: kernel %.3f ms, plain %.1f ms, "
+        "max |d log-odds| %.3g nats; %.4g cells, bound %.4f ms (%s)"
+        % (len(calls), ms, plain_ms, dlo, cells, b_ms, b_by))
+    result["pairhmm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             cells=cells, bytes=nbytes, pairs=n * A,
+                             max_abs_err_logodds=dlo)
 
 
 def main():
@@ -1564,9 +1802,11 @@ def main():
         ROOT, "build"))
     try:
         banks, codes, lens = timed(phase_forward, dev, result)
+        timed(phase_bench, result)
         timed(phase_flank, banks, codes, lens, dev, result)
         rec = Recorder()
         paths["amino500"] = timed(phase_amino, tmp)
+        paths["serve"] = timed(phase_serve, tmp)
         timed(phase_forward_path, list(rec.fwd), dev, result, "2f_amino500")
         timed(phase_null2, rec, dev, result)
         timed(phase_oa, rec, banks, codes, lens, dev, result)
@@ -1588,6 +1828,9 @@ def main():
         paths["scenario_a"] = timed(phase_scenario_a, tmp, rec)
         timed(phase_null2, rec, dev, result, "5b: null2 kernel vs plain, "
               "scenario A gate envelopes", "null2_scenario_a", 1024, False)
+        timed(phase_embed, tmp, dev, result)
+        paths["scenario_a_device_embed"] = timed(phase_scenario_a_embed,
+                                                 tmp, rec)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1600,7 +1843,10 @@ def main():
             ("oa", "witch_tpu_torch/csrc/oa.cu",
              "witch_tpu/ops/pallas_oa.py:55", "amino500"),
             ("flank", "witch_tpu_torch/csrc/flank.cu",
-             "witch_tpu/hmm/flank_device.py:52", "full_search")):
+             "witch_tpu/hmm/flank_device.py:52", "full_search"),
+            ("pairhmm", "witch_tpu_torch/csrc/pairhmm.cu",
+             "witch_tpu/ops/pairhmm_forward.py:27",
+             "scenario_a_device_embed")):
         r = result[name]
         b_ms, b_by = bound_ms(name, r["cells"], r["bytes"])
         k = dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1624,6 +1870,9 @@ def main():
                             for mp, v in result.get(name + t, {}).get(
                                 "layouts", {}).items()}
             extras += ("bound_by", "pairs")
+        if name == "pairhmm":
+            k.update(pairs=r["pairs"],
+                     max_abs_err_logodds=r["max_abs_err_logodds"])
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
                     "4d_dna1k", "4e_dna1k", "bench", "scenario_a"):
             r2 = result.get("%s_%s" % (name, tag))

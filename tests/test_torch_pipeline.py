@@ -22,7 +22,9 @@ PORT_MODULES = ("witch_tpu_torch", "witch_tpu_torch.pipeline",
                 "witch_tpu_torch.ops.oa", "witch_tpu_torch.ops.flank",
                 "witch_tpu_torch.tree_estimate", "witch_tpu_torch.backbone",
                 "witch_tpu_torch.device", "witch_tpu_torch._build",
-                "witch_tpu_torch.__main__")
+                "witch_tpu_torch.__main__", "witch_tpu_torch.server",
+                "witch_tpu_torch.benchlib", "witch_tpu_torch.ops.pairhmm",
+                "witch_tpu_torch.backbone_consistency")
 
 
 def _read_fasta_dict(fh):
@@ -93,20 +95,80 @@ def test_cli_without_cuda_raises(tmp_path):
 
 def test_unported_modes_raise(tmp_path, monkeypatch):
     """What is still unported raises, naming its ROADMAP queue: query
-    sharding (WITCH_TPU_SHARD) and the device pair-HMM embedding of the
-    scenario-A backbone aligner (WITCH_TPU_DEVICE_EMBED)."""
+    sharding (WITCH_TPU_SHARD)."""
     from witch_tpu_torch.cli import init_parser
     from witch_tpu_torch.config import build_configs
     from witch_tpu_torch.pipeline import main_alignment_process
     q = os.path.join(GOLD, "ref_amino.queries.fasta")
-    for env, extra in (
-            (("WITCH_TPU_SHARD", "0/2"),
-             ["-b", os.path.join(GOLD, "ref_amino.backbone.fasta"),
-              "-e", os.path.join(GOLD, "ref_amino.backbone.tre")]),
-            (("WITCH_TPU_DEVICE_EMBED", "1"), ["-i", q])):
-        monkeypatch.setenv(*env)
-        build_configs(init_parser(), ["-q", q, "-d", str(tmp_path / "o"),
-                                      "-o", "a.fasta"] + extra)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main_alignment_process(device="cpu")
-        monkeypatch.delenv(env[0])
+    monkeypatch.setenv("WITCH_TPU_SHARD", "0/2")
+    build_configs(init_parser(), [
+        "-q", q, "-d", str(tmp_path / "o"), "-o", "a.fasta",
+        "-b", os.path.join(GOLD, "ref_amino.backbone.fasta"),
+        "-e", os.path.join(GOLD, "ref_amino.backbone.tre")])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main_alignment_process(device="cpu")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the port's run: it is many small PyTorch
+    calls, which slow down sharply when test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("n_full, width", [(24, 100), (72, 60)])
+def test_scenario_a_device_embed_matches_jax(n_full, width, tmp_path,
+                                             monkeypatch, one_thread):
+    """Scenario A with WITCH_TPU_DEVICE_EMBED=1, the port on the CPU (the
+    pair-HMM plain version) against the JAX package: backbone, tree and
+    rows identical. 24 full-length rows of 100 are the data of
+    tests/test_torch_modes.py:test_scenario_a_matches_jax (aligned
+    without clustering, so the embedding is not reached); 72 rows of the
+    same kind, 60 wide, are clustered on the anchor embedding, which both
+    packages then compute on the device path."""
+    import numpy as np
+    import witch_tpu.backbone_consistency as jbc
+    import witch_tpu_torch.backbone_consistency as pbc
+    from test_torch_modes import _masked, _run_both
+    from witch_tpu.io.fasta import read_fasta, write_fasta
+    calls = {"jax": 0, "port": 0}
+
+    def counted(mod, key):
+        orig = mod._device_embedding
+
+        def run(*a, **kw):
+            calls[key] += 1
+            return orig(*a, **kw)
+        monkeypatch.setattr(mod, "_device_embedding", run)
+
+    counted(jbc, "jax")
+    counted(pbc, "port")
+    monkeypatch.setenv("WITCH_TPU_DEVICE_EMBED", "1")
+    rng = np.random.default_rng(5)
+    letters = np.array(list("ACGT"))
+    base = letters[rng.integers(0, 4, width)]
+    records = []
+    for i in range(n_full):
+        s = base.copy()
+        mut = rng.random(width) < 0.08
+        s[mut] = letters[rng.integers(0, 4, mut.sum())]
+        records.append((f"f{i}", "".join(s)))
+    for i in range(6):
+        a = rng.integers(0, width * 2 // 5)
+        records.append((f"q{i}", records[i][1][a:a + width * 9 // 20]))
+    inp = tmp_path / "all.fasta"
+    write_fasta(records, str(inp))
+    out_j, out_p = _run_both(["-i", str(inp), "-o", "aligned.fasta"],
+                             tmp_path)
+    assert calls == ({"jax": 1, "port": 1} if n_full > 65
+                     else {"jax": 0, "port": 0})
+    for f in ("backbone.aln.fasta", "backbone.tre", "queries.fasta"):
+        assert open(out_j / "backbone" / f).read() == \
+            open(out_p / "backbone" / f).read(), f
+    rows_j = dict(read_fasta(str(out_j / "aligned.fasta")))
+    assert rows_j == dict(read_fasta(str(out_p / "aligned.fasta")))
+    assert _masked(out_j) == _masked(out_p)
+    assert len(rows_j) == n_full + 6

@@ -16,12 +16,29 @@ __all__ = ["resolve_device", "witch_runner"]
 
 def witch_runner(argv=None):
     """CLI entry: the reference's witch.py flags (cli.py). Runs on CUDA
-    and raises without it."""
+    and raises without it. When a live server (server.py) already
+    watches server.default_jobs_dir(), the run is submitted to it
+    instead; WITCH_TPU_NO_DAEMON=1 keeps it in this process. The CLI
+    never starts a server."""
+    import os
     import sys
     import time
 
-    device = resolve_device()
     cmdline_args = sys.argv[1:] if argv is None else argv
+    if not os.environ.get("WITCH_TPU_NO_DAEMON") \
+            and not os.environ.get("WITCH_TPU_IN_SERVER"):
+        from . import server
+        s1 = time.time()
+        res = server.run_via_daemon(cmdline_args)
+        if res is not None:
+            if not res.get("ok"):
+                sys.stderr.write("ERROR (daemon job): %s\n" % res.get("error"))
+                raise SystemExit(1)
+            print("\nAll done! WITCH-TPU (torch) finished in %.1f seconds "
+                  "(resident daemon; job ran %.1fs)..."
+                  % (time.time() - s1, res.get("seconds", 0.0)))
+            return res.get("output")
+    device = resolve_device()
     from .cli import init_parser
     from .config import Configs, build_configs
     from .pipeline import main_alignment_process

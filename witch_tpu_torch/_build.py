@@ -21,7 +21,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu")
+SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu", "pairhmm.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "witch_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -33,11 +33,12 @@ SMEM_ROWS_MAX = 232448 - 1024
 
 # Kernel launches per wrapper since the last reset (plain integers: the
 # wrappers add one where they launch their kernel, and nowhere else).
-LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0}
-# CUDA-event milliseconds of the null2, OA and flank kernels' launches
-# since the last reset (ops/null2.py, ops/oa.py and ops/flank.py add each
-# call's launches, from the first to the last, once the last has finished)
-KERNEL_MS = {"null2": 0.0, "oa": 0.0, "flank": 0.0}
+LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0, "pairhmm": 0}
+# CUDA-event milliseconds of the null2, OA, flank and pair-HMM kernels'
+# launches since the last reset (ops/null2.py, ops/oa.py, ops/flank.py and
+# ops/pairhmm.py add each call's launches, from the first to the last,
+# once the last has finished)
+KERNEL_MS = {"null2": 0.0, "oa": 0.0, "flank": 0.0, "pairhmm": 0.0}
 
 _lock = threading.Lock()
 _lib = None
@@ -121,9 +122,11 @@ def lib():
             so.witch_oa_warp.argtypes = [P] * 17 + [I] * 6 + [P]
             so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]
             so.witch_flank_warp.argtypes = [P] * 11 + [I] * 8 + [P]
+            so.witch_pairhmm.argtypes = [P] * 7 + [I] * 5 + \
+                [ctypes.c_float] * 4 + [P]
             for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
                        so.witch_oa_warp, so.witch_flank, so.witch_flank_warp,
-                       so.witch_null2_ctas_per_sm):
+                       so.witch_null2_ctas_per_sm, so.witch_pairhmm):
                 fn.restype = I
             _lib = so
         return _lib

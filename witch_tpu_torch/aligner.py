@@ -9,10 +9,19 @@ re-aligned on the native f64 engine (posterior_oa_pair); that guard is
 part of the output contract (hmmalign-exact columns), and its count is
 logged. select_pairs and HostAligner are copied from witch_tpu/aligner.py
 (that module's device aligners reach JAX).
+
+The scoring stage starts the aligner early (speculative_oa_start, the
+counterpart of witch_tpu/aligner.py:speculative_oa_start): a thread runs
+DeviceAligner.aligned_columns_batch on the pairs the pre-overlay scores
+select while the host runs the exact-f32 print overlay; align_all_queries
+joins it (SpeculativeOA.join), aligning the pairs whose selection drifted
+on the native engine.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -113,16 +122,16 @@ class DeviceAligner:
         """(cols, margins, oks) straight from the kernel."""
         return oa_columns(self.banks_t, self.bank_row, pairs, Ldmax=Ldmax)
 
-    def aligned_columns_batch(self, pairs, Ldmax: int):
+    def aligned_columns_batch(self, pairs, Ldmax: int, quiet=False):
         """Columns per pair: the device kernel, then the native guard
-        re-alignment of below-margin / failed-trace pairs."""
+        re-alignment of below-margin / failed-trace pairs. The run's
+        numbers are kept in self.stats; `quiet` leaves the runtime line
+        to the caller."""
         if not pairs:
             return []
         t0 = time.time()
         k_ms, k_n = _build.KERNEL_MS["oa"], _build.LAUNCHES["oa"]
         cols, margins, oks = self.device_columns(pairs, Ldmax)
-        k_ms = _build.KERNEL_MS["oa"] - k_ms
-        k_n = _build.LAUNCHES["oa"] - k_n
         t1 = time.time()
         redo = [p for p in range(len(pairs))
                 if not oks[p] or margins[p] < OA_GUARD]
@@ -130,11 +139,83 @@ class DeviceAligner:
             fixed = self.native_columns([pairs[p] for p in redo])
             for p, v in zip(redo, fixed):
                 cols[p] = v
-        Configs.runtime(
-            "  align: %d pairs device posterior+OA %.2fs (kernel %.2f ms, "
-            "%d launches; %d below-guard native re-aligns) (s): %f"
-            % (len(pairs), t1 - t0, k_ms, k_n, len(redo), time.time() - t0))
+        self.stats = dict(
+            pairs=len(pairs), t_device=t1 - t0, redo=len(redo),
+            kernel_ms=_build.KERNEL_MS["oa"] - k_ms,
+            launches=_build.LAUNCHES["oa"] - k_n, t=time.time() - t0)
+        if not quiet:
+            Configs.runtime(
+                "  align: %(pairs)d pairs device posterior+OA %(t_device).2fs "
+                "(kernel %(kernel_ms).2f ms, %(launches)d launches; %(redo)d "
+                "below-guard native re-aligns) (s): %(t)f" % self.stats)
         return cols
+
+
+def _pair_key(idx, codes):
+    return int(idx), np.asarray(codes, np.int32).tobytes()
+
+
+class SpeculativeOA:
+    """The aligner started from the pre-overlay selection: a thread runs
+    DeviceAligner.aligned_columns_batch on `pairs` (kernel, then the
+    native guard) and caches the columns by (model, query codes)."""
+
+    def __init__(self, aligner: DeviceAligner, pairs, Ldmax: int, device):
+        self.aligner = aligner
+        self.cache: Dict[tuple, np.ndarray] = {}
+        self.error: Optional[BaseException] = None
+        self.thread = threading.Thread(
+            target=self._run, args=(pairs, Ldmax, device), daemon=True)
+        self.thread.start()
+
+    def _run(self, pairs, Ldmax, device):
+        try:
+            import torch
+            with torch.cuda.device(device) if device.type == "cuda" \
+                    else contextlib.nullcontext():
+                cols = self.aligner.aligned_columns_batch(pairs, Ldmax,
+                                                          quiet=True)
+            for (idx, c), v in zip(pairs, cols):
+                self.cache[_pair_key(idx, c)] = v
+        except BaseException as e:   # noqa: BLE001 - re-raised by join
+            self.error = e
+
+    def join(self, pairs) -> List[np.ndarray]:
+        """Columns of the align stage's `pairs`: the cached ones, and the
+        native engine's for pairs the speculative selection missed (the
+        selection drifted with the overlay). Re-raises the thread's
+        error."""
+        t0 = time.time()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        t_wait = time.time() - t0
+        out = [self.cache.get(_pair_key(idx, c)) for idx, c in pairs]
+        missing = [p for p, v in enumerate(out) if v is None]
+        if missing:
+            fixed = self.aligner.native_columns([pairs[p] for p in missing])
+            for p, v in zip(missing, fixed):
+                out[p] = v
+        st = self.aligner.stats
+        Configs.runtime(
+            "  align: %d pairs speculative device OA join (%d selection-drift "
+            "host aligns) wait %.2fs; speculative thread %d pairs device "
+            "posterior+OA %.2fs (kernel %.2f ms, %d launches; %d below-guard "
+            "native re-aligns) %.2fs (s): %f"
+            % (len(pairs), len(missing), t_wait, st["pairs"], st["t_device"],
+               st["kernel_ms"], st["launches"], st["redo"], st["t"],
+               time.time() - t0))
+        return out
+
+
+def speculative_oa_start(ens, device, banks, pairs, Ldmax: int) -> None:
+    """Start the device aligner on a speculative pair selection in a
+    thread (the scoring stage calls this before the exact-f32 overlay, so
+    the kernel runs while the host overlays); align_all_queries joins it
+    through ens._spec_oa."""
+    aligner = DeviceAligner(ens, device, banks)
+    ens._spec_oa = SpeculativeOA(aligner, pairs, Ldmax,
+                                 aligner.banks_t[0].device)
 
 
 def validate_oa(aligner: DeviceAligner, pairs, Ldmax: int,
@@ -184,8 +265,13 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
             keys.append((qname, idx))
     # scratch/trace bound from the whole query set, not the drawn pairs
     Ldmax = max((len(c) for c in qcodes), default=1)
-    cols = DeviceAligner(ens, device, banks).aligned_columns_batch(
-        pair_list, Ldmax) if pair_list else []
+    spec = getattr(ens, "_spec_oa", None)
+    if spec is not None:
+        ens._spec_oa = None
+        cols = spec.join(pair_list)
+    else:
+        cols = DeviceAligner(ens, device, banks).aligned_columns_batch(
+            pair_list, Ldmax) if pair_list else []
     cols_of = dict(zip(keys, cols))
 
     t0 = time.time()

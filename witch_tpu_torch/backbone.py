@@ -7,8 +7,9 @@ witch_tpu/backbone.py, with every sequence aligned on the native engine
 (its device path, _align_all_device, is not copied). The aligner is
 align_backbone_consistency by default, or the WITCH_TPU_BACKBONE
 backends "magus" and "iterhmm". The tree comes from the port's
-tree_estimate (device distances). The opt-in device pair-HMM embedding
-(WITCH_TPU_DEVICE_EMBED=1) is not ported and raises.
+tree_estimate (device distances). The opt-in device pair-HMM anchor
+embedding of the consistency aligner (WITCH_TPU_DEVICE_EMBED=1) runs on
+the job's device (backbone_consistency.py:_device_embedding).
 """
 
 from __future__ import annotations
@@ -296,12 +297,6 @@ class BackboneJob:
         self.log = log or (lambda *_: None)
 
     def run(self):
-        if os.environ.get("WITCH_TPU_DEVICE_EMBED", "") not in (
-                "", "0", "false"):
-            raise NotImplementedError(
-                "WITCH_TPU_DEVICE_EMBED: the device pair-HMM embedding is "
-                "not ported yet (ROADMAP.md, Queue 1: the opt-in device "
-                "pair-HMM embedding)")
         records = [(n, s.upper()) for n, s in read_fasta(self.input_path)]
         if self.molecule is None:
             self.molecule = infer_datatype(records)
@@ -328,7 +323,8 @@ class BackboneJob:
             from .backbone_consistency import align_backbone_consistency
             aln = align_backbone_consistency(
                 names, seqs, self.molecule, seed=self.seed,
-                iters=2 if self.method == "pasta" else 1, log=self.log)
+                iters=2 if self.method == "pasta" else 1, log=self.log,
+                device=self.device)
         elif backend == "magus":
             from .backbone_magus import align_backbone_magus
             aln = align_backbone_magus(names, seqs, self.molecule,

@@ -482,11 +482,55 @@ def consistency_align(names: List[str], seqs: List[str], molecule: str,
     return PackedAlignment(list(names), aln.codes[sel], alphabet)
 
 
+def _device_embedding(codes32, anchors, em, delta, eps, device,
+                      chunk: int = 1024) -> np.ndarray:
+    """[n, A] normalized pair-HMM forward log-odds on `device` (the
+    counterpart of witch_tpu/backbone_consistency.py:_device_embedding):
+    pairs sorted by the sequence's length, cut into chunks, each chunk
+    through ops/pairhmm.py:pairhmm_forward_logodds (the kernel on CUDA,
+    the plain version on the CPU), each log-odds divided by
+    min(len_s, len_anchor)."""
+    import torch
+
+    from .ops.pairhmm import pairhmm_forward_logodds
+
+    n = len(codes32)
+    A = len(anchors)
+    lens = np.array([len(c) for c in codes32], np.int64)
+    LB = max(1, int(lens[anchors].max()))
+    anc = np.zeros((A, LB), np.int32)
+    for t, ai in enumerate(anchors):
+        anc[t, :lens[ai]] = codes32[ai]
+    emt = torch.as_tensor(np.asarray(em, np.float32), device=device)
+
+    pairs = [(s, t) for s in range(n) for t in range(A)]
+    pairs.sort(key=lambda st: lens[st[0]])
+    E = np.zeros((n, A), np.float64)
+    for off in range(0, len(pairs), chunk):
+        blk = pairs[off:off + chunk]
+        P = len(blk)
+        LA = max(1, int(max(lens[s] for s, _ in blk)))
+        cA = np.zeros((P, LA), np.int32)
+        lA = np.zeros(P, np.int32)
+        tB = np.array([t for _, t in blk], np.int64)
+        for r, (s, _) in enumerate(blk):
+            cA[r, :lens[s]] = codes32[s]
+            lA[r] = lens[s]
+        lo = pairhmm_forward_logodds(
+            *(torch.from_numpy(x).to(device) for x in (
+                cA, lA, anc[tB], lens[anchors][tB].astype(np.int32))),
+            emt, delta, eps).cpu().numpy()
+        for r, (s, t) in enumerate(blk):
+            E[s, t] = lo[r] / max(1, min(lens[s], lens[anchors[t]]))
+    return E
+
+
 def anchor_embedding(codes: List[np.ndarray], alphabet: Alphabet,
                      n_anchors: int = 24, match_p: float = 0.3,
                      delta: float = 0.02, eps: float = 0.75,
                      workers: int = 8, seed: int = 0,
-                     use_device: Optional[bool] = None) -> np.ndarray:
+                     use_device: Optional[bool] = None,
+                     device=None) -> np.ndarray:
     """[n, A] expected-accuracy embedding against farthest-point anchors.
 
     k-mer distances are noise on twilight-zone inputs, but pair-HMM
@@ -496,8 +540,11 @@ def anchor_embedding(codes: List[np.ndarray], alphabet: Alphabet,
     anchor set; clustering on this embedding recovers phylogenetic
     neighborhoods the way MAGUS's guide-tree decomposition does.
 
-    use_device=True (or WITCH_TPU_DEVICE_EMBED=1) asks for the JAX
-    package's device pair-HMM embedding, which is not ported: it raises.
+    use_device=True (or WITCH_TPU_DEVICE_EMBED=1) replaces the native
+    EA with batched forward log-odds on `device` (_device_embedding;
+    CUDA unless the caller passes the CPU). The JAX package keeps that
+    path opt-in: forward log-odds agree only ~0.68 with the EA
+    (witch_tpu/backbone_consistency.py:666-672).
     """
     from .backbone import _kmer_profiles
     from .native import _pairhmm
@@ -518,9 +565,9 @@ def anchor_embedding(codes: List[np.ndarray], alphabet: Alphabet,
         use_device = os.environ.get(
             "WITCH_TPU_DEVICE_EMBED", "") not in ("", "0", "false")
     if use_device:
-        raise NotImplementedError(
-            "WITCH_TPU_DEVICE_EMBED: the device pair-HMM embedding is not "
-            "ported (ROADMAP.md, Queue 1)")
+        from .device import resolve_device
+        return _device_embedding(codes32, anchors, em, delta, eps,
+                                 resolve_device(device))
 
     E = np.zeros((n, A), np.float64)
 
@@ -1063,7 +1110,7 @@ def align_backbone_consistency(names: List[str], seqs: List[str],
                                col_cutoff: float = 1e-4,
                                size_weight: bool = False,
                                refine_passes: int = 2,
-                               workers: int = 8, log=None
+                               workers: int = 8, log=None, device=None
                                ) -> PackedAlignment:
     """Full-backbone alignment: decompose, align subsets with the
     consistency engine, merge subset alignments along a subset-level
@@ -1072,7 +1119,8 @@ def align_backbone_consistency(names: List[str], seqs: List[str],
     The same divide-and-merge shape as the reference's MAGUS
     (decompose -> L-INS-i subsets -> graph merge,
     witch_msa/tools/magus/align/aligner.py) with the graph replaced by
-    merge-time sampled cross-subset pair posteriors.
+    merge-time sampled cross-subset pair posteriors. `device` is where
+    the opt-in device anchor embedding runs (anchor_embedding).
     """
     from .backbone_progressive import upgma_merges
 
@@ -1138,7 +1186,8 @@ def align_backbone_consistency(names: List[str], seqs: List[str],
     # iteration 0 clusters from the EA anchor embedding; later
     # iterations re-derive neighborhoods from the previous alignment
     # (PASTA-style iteration)
-    E = anchor_embedding(codes, alphabet, workers=workers, seed=seed)
+    E = anchor_embedding(codes, alphabet, workers=workers, seed=seed,
+                         device=device)
 
     def join_cap(na, nb):
         # fixed caps starve big joins (at n=500 the root join has 62k

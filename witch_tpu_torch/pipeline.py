@@ -222,6 +222,20 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
                 by_j.setdefault(int(j), []).append(q)
         _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
                      consume, nthreads, t0)
+        # speculative alignment: the OA kernel runs on the pre-overlay
+        # selection while the host runs the overlay below; the overlay
+        # moves scores by <= ~6e-3 bits, so the final selection almost
+        # always matches, and the align stage aligns drifted pairs on
+        # the native engine (aligner.py:SpeculativeOA.join)
+        spec_on = os.environ.get("WITCH_TPU_SPEC_OA", "") != "0"
+        if spec_on:
+            spec_pairs = _speculative_pairs(
+                ens, indices, qcodes, reported, valid, pre, evaluated,
+                gate_ok, size_arr, owned, TOPT)
+            if spec_pairs:
+                from .aligner import speculative_oa_start
+                Ldmax = max((len(c) for c in qcodes), default=1)
+                speculative_oa_start(ens, device, banks, spec_pairs, Ldmax)
 
     # ---- exact-f32 print overlay (native, print-boundary pairs) ----
     if band32:
@@ -267,6 +281,27 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
         valid = _candidate_walk(reported, valid, pre, evaluated, gate_ok,
                                 size_arr, owned, TOPT)
     return np.round(reported, 1), valid, indices, banks
+
+
+def _speculative_pairs(ens, indices, qcodes, reported, valid, pre,
+                       evaluated, gate_ok, size_arr, owned, TOPT):
+    """The (model, query codes) pairs the align stage would draw from the
+    pre-overlay scores: rounded to 0.1 bit, the candidate walk, weights,
+    then each owned query's adaptive top models (the selection of
+    witch_tpu/pipeline.py:676-698)."""
+    from .weighting import adaptive_top_hmms
+    rep = np.round(reported, 1)
+    valid_spec = _candidate_walk(rep, valid, pre, evaluated, gate_ok,
+                                 size_arr, owned, TOPT)
+    weights = rank_and_weight(rep, valid_spec, indices, ens.sizes(),
+                              list(range(len(qcodes))))
+    pairs = []
+    for q in owned:
+        for idx, _ in adaptive_top_hmms(weights.get(int(q), ()),
+                                        use_weight=Configs.use_weight):
+            pairs.append((int(idx), np.ascontiguousarray(qcodes[q],
+                                                         np.int32)))
+    return pairs
 
 
 def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,

@@ -3,19 +3,23 @@ checkouts of the repository on one CUDA card, and compare their outputs
 byte for byte.
 
     python3 witch_tpu_torch/tools/compare_dna1k.py --tree A --tree B [--out DIR]
-        [--full-search N]
+        [--full-search N] [--env I:KEY=VALUE ...]
 
 The data is scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
 20260820 (1,000 backbone sequences and tree, 1,000 query fragments).
 With --full-search N the runs take its first N queries with
 --full-search-results 1 (the device flank prefilter, then native domain
-definition of the pairs it keeps). The trees run in turns A B B A, each
+definition of the pairs it keeps). --env I:KEY=VALUE sets KEY in the
+environment of the I-th --tree's runs (from 0): `--tree . --tree . --env
+1:WITCH_TPU_SPEC_OA=0` compares one checkout with the speculative OA
+start on and off. The trees run in turns A B B A, each
 in its own process, so the timings come from one call on one card. Per
 run it prints one JSON line: the tree, the wall time, and the
 runtime_breakdown.txt lines of the device Forward scoring, the device
 gate (or prefilter, with the flank kernel's ms and launches), the native
-domain definition, the alignment (device posterior+OA, with the OA
-kernel's ms and launches) and the total; then one JSON line comparing
+domain definition, the exact-f32 overlay, the alignment (device
+posterior+OA or its speculative join, with the OA kernel's ms and
+launches) and the total; then one JSON line comparing
 every run's aligned.fasta, aligned.masked.fasta and persisted
 hmmsearch.results.* files with the first run's, naming any row or file
 that differs. In the full-search mode each run records, through the
@@ -143,11 +147,16 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "compare_dna1k"))
     ap.add_argument("--full-search", type=int, default=0)
+    ap.add_argument("--env", action="append", default=[])
     a = ap.parse_args()
     a.out = os.path.abspath(a.out)       # the runs' working directories differ
     trees = [os.path.abspath(t) for t in a.tree]
-    turns = trees if len(trees) == 1 else \
-        [trees[0], trees[1], trees[1], trees[0]]
+    envs = [{} for _ in trees]
+    for e in a.env:
+        i, kv = e.split(":", 1)
+        k, v = kv.split("=", 1)
+        envs[int(i)][k] = v
+    turns = [0] if len(trees) == 1 else [0, 1, 1, 0]
     data = os.path.join(a.out, "data")
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),
@@ -163,9 +172,10 @@ def main():
         extra = ["--full-search-results", "1"]
     card = smi()
     outs = []
-    for i, t in enumerate(turns):
+    for i, ti in enumerate(turns):
+        t = trees[ti]
         outdir = os.path.join(a.out, "run%d" % i)
-        env = dict(os.environ, PYTHONPATH=t)
+        env = dict(os.environ, PYTHONPATH=t, **envs[ti])
         t0 = time.time()
         cli = ["-b", os.path.join(data, "backbone.aln.fasta.gz"),
                "-e", os.path.join(data, "backbone.tre"),
@@ -182,9 +192,10 @@ def main():
             os.path.join(outdir, "runtime_breakdown.txt"))
             if "device Forward" in ln or "Total runtime" in ln
             or "all-vs-all Forward" in ln or "device gate" in ln
-            or "native domaindef" in ln or "posterior+OA" in ln]
-        print(json.dumps(dict(tree=t, run=i, wall_s=wall, lines=lines,
-                              card=card)), flush=True)
+            or "native domaindef" in ln or "posterior+OA" in ln
+            or "overlay" in ln]
+        print(json.dumps(dict(tree=t, env=envs[ti], run=i, wall_s=wall,
+                              lines=lines, card=card)), flush=True)
         outs.append(outdir)
     cmp = {}
     for f in ("aligned.fasta", "aligned.masked.fasta"):

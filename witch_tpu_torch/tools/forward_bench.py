@@ -4,9 +4,11 @@ more checkouts of the repository, on one CUDA card.
     python3 witch_tpu_torch/tools/forward_bench.py [--tree DIR ...] [--reps N]
 
 bench_assets.npz holds 141 models in two banks (Mp 1,312 and 2,720) and
-500 queries. Each tree runs in its own process (the trees' packages
-share a name), in turns A B B A for two trees, so both are measured in
-one call on one card. Per tree and turn it prints one JSON line: CUDA
+500 queries, read by witch_tpu_torch/benchlib.py:load_bench_assets of
+each tree (so a tree from before that module cannot be measured). Each
+tree runs in its own process (the trees' packages share a name), in
+turns A B B A for two trees, so both are measured in one call on one
+card. Per tree and turn it prints one JSON line: CUDA
 event ms per bank (mean of --reps launches after a warm-up), the plain
 version's ms (one call) when --plain is given, the largest |dbits|
 between kernel and plain, and the card's name and power limit.
@@ -22,22 +24,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 CHILD = r"""
-import json, sys, types
+import json, sys
 import numpy as np
 import torch
 tree, reps, plain = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1"
 sys.path.insert(0, tree)
+from witch_tpu_torch.benchlib import load_bench_assets
 from witch_tpu_torch.device import bank_to_torch
 from witch_tpu_torch.ops.forward import LN2, forward_nats, forward_nats_ref
-z = np.load(sys.argv[4])
-fields = ("em_odds", "t_mm", "t_mi", "t_md", "t_im", "t_ii", "t_dm",
-          "t_dd", "bm", "M")
+banks, z = load_bench_assets(sys.argv[4])
 dev = torch.device("cuda")
 c = torch.from_numpy(z["codes"]).to(dev)
 ln = torch.from_numpy(z["lens"]).to(dev)
 res = dict(tree=tree, banks=[])
-for i in range(int(z["n_banks"])):
-    b = types.SimpleNamespace(**{f: z["bank%d_%s" % (i, f)] for f in fields})
+for b in banks:
     bt = bank_to_torch(b, dev)
     k = forward_nats(bt, c, ln)
     torch.cuda.synchronize()
