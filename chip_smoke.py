@@ -42,16 +42,17 @@ Phases:
                 beside 2a's kernel ms;
   3. amino500 golden end to end through witch_tpu_torch.witch_runner:
      600/600 masked rows equal the oracle; all three kernels launched;
-     the align stage joined the speculative OA start; again with
-     WITCH_TPU_SPEC_OA=0 (600/600, no speculative join); (3d) a resident
-     server (python -m witch_tpu_torch serve) answers amino500 twice with
-     outputs byte-identical to phase 3's, the three kernels launched in
-     it, and a bench job with bench_tier's keys, each job's seconds
-     beside phase 3's wall, the server killed at the end;
-     the same with --full-search-results 1 (600/600 rows, the flank
-     kernel launched, full_search_replay below) and with -m old-witch
-     (every query placed with its residues or ignored, 0 above-guard OA
-     mismatches against native over all its pairs);
+     the align stage joined the speculative OA start; before it the same
+     with WITCH_TPU_SPEC_OA=0 (600/600, no speculative join); (3d) a
+     resident server (python -m witch_tpu_torch serve) answers amino500
+     twice with outputs byte-identical to phase 3's, the three kernels
+     launched in it, and a bench job with bench_tier's keys, each job's
+     seconds beside phase 3's wall and a fresh CLI process's, the server
+     killed at the end; (3b) amino500 with --full-search-results 1
+     (600/600 rows, the flank kernel launched, full_search_replay below)
+     and (3c) with -m old-witch (every query placed with its residues or
+     ignored, 0 above-guard OA mismatches against native over all its
+     pairs);
   4. seeded DNA scenario D, 1,000 backbone + 1,000 queries
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
@@ -485,18 +486,11 @@ def run_amino(outdir, extra, label, oracle=True):
     return launches
 
 
-def phase_amino(tmp):
-    say("== phase 3: amino500 golden end to end (witch_runner)")
-    outdir = os.path.join(tmp, "amino500")
-    launches = run_amino(outdir, [], "amino500")
-    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
-          "amino500: forward, null2 and oa launched on the main path %s"
-          % launches)
-    join, drift = spec_join(outdir)
-    check(join is not None, "amino500: the align stage joined the "
-          "speculative OA start (%s selection-drift host aligns): %s"
-          % (drift, join))
-    say("== phase 3 again with WITCH_TPU_SPEC_OA=0 (no speculative start)")
+def phase_amino(tmp, rec):
+    """amino500 with the speculative OA start off, then (recorded for the
+    replays of 2b, 2c and 2f) with it on, the main path."""
+    say("== phase 3: amino500 golden end to end (witch_runner), first "
+        "with WITCH_TPU_SPEC_OA=0 (no speculative start)")
     os.environ["WITCH_TPU_SPEC_OA"] = "0"
     try:
         off_dir = os.path.join(tmp, "amino500_spec_off")
@@ -506,6 +500,17 @@ def phase_amino(tmp):
     check(spec_join(off_dir)[0] is None and off["oa"] > 0,
           "amino500 WITCH_TPU_SPEC_OA=0: the align stage launched the OA "
           "kernel itself, no speculative join %s" % off)
+    say("== phase 3: amino500 with the speculative OA start (the default)")
+    rec.clear()
+    outdir = os.path.join(tmp, "amino500")
+    launches = run_amino(outdir, [], "amino500")
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "amino500: forward, null2 and oa launched on the main path %s"
+          % launches)
+    join, drift = spec_join(outdir)
+    check(join is not None, "amino500: the align stage joined the "
+          "speculative OA start (%s selection-drift host aligns): %s"
+          % (drift, join))
     say("  amino500 wall: speculative start on %.2f s, off %.2f s"
         % (WALL["amino500"], WALL["amino500 WITCH_TPU_SPEC_OA=0"]))
     return launches
@@ -1805,7 +1810,7 @@ def main():
         timed(phase_bench, result)
         timed(phase_flank, banks, codes, lens, dev, result)
         rec = Recorder()
-        paths["amino500"] = timed(phase_amino, tmp)
+        paths["amino500"] = timed(phase_amino, tmp, rec)
         paths["serve"] = timed(phase_serve, tmp)
         timed(phase_forward_path, list(rec.fwd), dev, result, "2f_amino500")
         timed(phase_null2, rec, dev, result)
