@@ -141,14 +141,15 @@ DNA1K_DIAG = 20
 # 3), flank 40 (that Forward and a Backward of the same count), null2 45
 # (Forward, Backward, 5 for the posterior state usage), oa 58 (Forward
 # and Backward 40 and the posteriors 4 at the f32 rate, the OA DP's 14 at
-# the f64 rate), pairhmm 22 per cell of A x B (the previous row's three
-# reads rescaled 3, M 6, X 3, the chunk's Y map 4, Y 3, the row max 3;
-# csrc/pairhmm.cu)
+# the f64 rate), pairhmm 17 per cell of A x B, from the recurrence
+# alone (the previous row's three values rescaled 3, M 5 with t_gm
+# factored out, X 3, Y 3, the row max 3; the kernel's own scan of the
+# chunks' affine maps is not counted)
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58,
-                "pairhmm": 22}
+                "pairhmm": 17}
 F64_OPS_PER_CELL = {"oa": 14}
 # bytes of stored scratch per state-row, at the kernel's padded width:
 # null2 16 (Forward M and I written and read back), oa 17 (Backward bM and
@@ -563,7 +564,9 @@ def phase_serve(tmp):
             res = submit(jobs, amino_argv(outdir), timeout_s=600,
                          dead_server_s=120)
             wait = time.time() - t1
-            check(res["ok"], "serve job %d ok (%s)" % (k, res.get("error")))
+            check(res["ok"] and res["device"] == "cuda",
+                  "serve job %d ok on %s (%s)" % (k, res["device"],
+                                                  res.get("error")))
             same = [open(os.path.join(outdir, f), "rb").read()
                     == open(os.path.join(ref, f), "rb").read()
                     for f in ("aligned.fasta", "aligned.masked.fasta")]
@@ -1713,63 +1716,46 @@ def phase_embed(tmp, dev, result):
     5's backbone) on the device path: every (sequence, anchor) pair
     through the kernel and through the plain version, E within 2e-4 (the
     bar of tests/test_pairhmm_forward.py); the kernel's ms on the
-    path's own calls, plain's, and the bound."""
+    path's own calls, plain's, and the bound (witch_tpu_torch/tools/
+    pairhmm_bench.py's record_calls and time_calls)."""
+    import importlib.util
     import numpy as np
-    import torch
-    import witch_tpu_torch.ops.pairhmm as ph
     from witch_tpu_torch import _build
-    from witch_tpu_torch.backbone_consistency import anchor_embedding
     from witch_tpu_torch.core.alphabet import ALPHABETS
     from witch_tpu_torch.io.fasta import read_fasta
 
     say("== phase 5c: pair-HMM anchor embedding of scenario A's backbone, "
         "kernel vs plain")
+    spec = importlib.util.spec_from_file_location(
+        "witch_pairhmm_bench", os.path.join(
+            ROOT, "witch_tpu_torch", "tools", "pairhmm_bench.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
     al = ALPHABETS["dna"]
     codes = [al.encode(x.replace("-", "").upper()) for _, x in read_fasta(
         os.path.join(tmp, "scenA_out", "backbone", "backbone.aln.fasta"))]
-    calls = []
-    kern = ph.pairhmm_forward_logodds
-
-    def recorded(*a):
-        calls.append(a)
-        return kern(*a)
-
     n0, t0 = _build.LAUNCHES["pairhmm"], time.time()
-    ph.pairhmm_forward_logodds = recorded
-    try:
-        E_k = anchor_embedding(codes, al, use_device=True, device=dev)
-    finally:
-        ph.pairhmm_forward_logodds = kern
+    E_k, calls = tool.record_calls(codes, al, dev)
     n_k, wall = _build.LAUNCHES["pairhmm"] - n0, time.time() - t0
-    ph.pairhmm_forward_logodds = ph.pairhmm_forward_logodds_plain
-    try:
-        E_p = anchor_embedding(codes, al, use_device=True, device=dev)
-    finally:
-        ph.pairhmm_forward_logodds = kern
+    E_p, _ = tool.record_calls(codes, al, dev, kernel=False)
     n, A = E_k.shape
     err = float(np.abs(E_k - E_p).max())
     check(np.isfinite(E_k).all() and n == len(codes) and err <= 2e-4,
           "pairhmm: anchor embedding [%d, %d] (%d pairs), kernel vs plain "
           "max |dE| %.3g <= 2e-4, %d launches, %.2f s"
           % (n, A, n * A, err, n_k, wall))
-    ms = plain_ms = cells = nbytes = dlo = 0.0
-    for a in calls:
-        cA, lA, cB, lB, em = a[:5]
-        k = kern(*a)
-        p = ph.pairhmm_forward_logodds_plain(*a)
-        torch.cuda.synchronize()
-        dlo = max(dlo, float((k - p).abs().max()))
-        ms += cuda_ms(lambda: kern(*a), 3)
-        plain_ms += cuda_ms(lambda: ph.pairhmm_forward_logodds_plain(*a), 1)
-        cells += float((lA.double() * (lB.double() + 1)).sum())
-        nbytes += 4 * (cA.numel() + cB.numel() + 3 * len(lA) + em.numel())
-    b_ms, b_by = bound_ms("pairhmm", cells, nbytes)
+    r = tool.time_calls(calls, 3)
+    b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
+    check(abs(b_ms - r["bound_ms"]) <= 1e-9 * b_ms,
+          "pairhmm: the tool's bound equals the script's")
     say("  %d launches at the path's shapes: kernel %.3f ms, plain %.1f ms, "
         "max |d log-odds| %.3g nats; %.4g cells, bound %.4f ms (%s)"
-        % (len(calls), ms, plain_ms, dlo, cells, b_ms, b_by))
-    result["pairhmm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             cells=cells, bytes=nbytes, pairs=n * A,
-                             max_abs_err_logodds=dlo)
+        % (len(calls), r["ms"], r["plain_ms"], r["max_abs_err_logodds"],
+           r["cells"], b_ms, b_by))
+    result["pairhmm"] = dict(max_abs_err=err, ms=r["ms"],
+                             plain_ms=r["plain_ms"], cells=r["cells"],
+                             bytes=r["bytes"], pairs=n * A,
+                             max_abs_err_logodds=r["max_abs_err_logodds"])
 
 
 def main():

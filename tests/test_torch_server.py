@@ -2,15 +2,18 @@
 `serve --device cpu` subprocess answers an amino job (the golden's
 backbone, its first 12 queries) with the bytes of an in-process run and
 a bench job with bench_tier's keys, reports a failed job with its
-traceback, and the CLI routes to it only when it is alive, never
-starting one. Server and test run one intra-op thread each: the CPU runs
+traceback and records its device. The CLI routes only to a live server
+on a card (a stand-in here), never to a CPU server, and never starts
+one. Server and test run one intra-op thread each: the CPU runs
 are many small PyTorch calls, which slow down sharply when test workers
 share the cores."""
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -112,36 +115,97 @@ def test_failed_job_reports_its_traceback(daemon, tmp_path):
     res = submit(daemon, _amino(tmp_path / "o", str(
         tmp_path / "missing.fasta")), **WAIT)
     assert res["ok"] is False
+    assert res["device"] == "cpu"
     assert "Traceback" in res["error"]
     assert "query sequences missing" in res["error"]
 
 
-def test_cli_routes_only_to_a_live_daemon(daemon, tmp_path, monkeypatch):
-    """witch_runner submits to the live server of WITCH_TPU_DAEMON_DIR
-    (a job the server fails: the CLI exits 1 and the server holds its
-    record); under WITCH_TPU_NO_DAEMON=1 it runs in this process (and,
-    without a card, raises); with no live server it starts none."""
+@contextlib.contextmanager
+def card_server(jobs, done_device="cuda"):
+    """A stand-in for a server on a card, which these tests cannot start:
+    its server.alive records "cuda", and it answers each job with a
+    failed record from `done_device`, in the form serve writes."""
+    from witch_tpu_torch.server import _claim, _write_alive
+    os.makedirs(jobs, exist_ok=True)
+    _write_alive(os.path.join(jobs, "server.alive"), "cuda")
+    stop = threading.Event()
+
+    def answer():
+        while not stop.is_set():
+            name = _claim(jobs)
+            if name is None:
+                stop.wait(0.1)
+                continue
+            with open(os.path.join(jobs, name + ".done"), "w") as f:
+                json.dump({"ok": False, "output": None, "error": "card job",
+                           "seconds": 0.0, "launches": {},
+                           "device": done_device}, f)
+
+    t = threading.Thread(target=answer, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+
+
+def _n_jobs(jobs):
+    return len([f for f in os.listdir(jobs) if f.endswith(".job")])
+
+
+def test_cli_routes_only_to_a_live_daemon(tmp_path, monkeypatch):
+    """witch_runner submits to the live server on a card of
+    WITCH_TPU_DAEMON_DIR (a job the server fails: the CLI exits 1), and
+    raises when the record says the job ran elsewhere; under
+    WITCH_TPU_NO_DAEMON=1 it runs in this process (and, without a card,
+    raises); with no live server it starts none."""
     from witch_tpu_torch import witch_runner
     argv = _amino(tmp_path / "r", str(tmp_path / "missing.fasta"))
-    monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", daemon)
     monkeypatch.delenv("WITCH_TPU_NO_DAEMON", raising=False)
-    n_done = len([f for f in os.listdir(daemon) if f.endswith(".done")])
-    with pytest.raises(SystemExit) as e:
-        witch_runner(argv)
-    assert e.value.code == 1
-    done = [json.load(open(os.path.join(daemon, f)))
-            for f in os.listdir(daemon) if f.endswith(".done")]
-    assert len(done) == n_done + 1
-    assert any("query sequences missing" in (d["error"] or "")
-               for d in done)
+    card = str(tmp_path / "card")
+    monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", card)
+    with card_server(card):
+        with pytest.raises(SystemExit) as e:
+            witch_runner(argv)
+        assert e.value.code == 1
+        assert _n_jobs(card) == 1
+    odd = str(tmp_path / "odd")
+    monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", odd)
+    with card_server(odd, done_device="cpu"):
+        with pytest.raises(RuntimeError, match="not on CUDA"):
+            witch_runner(argv)
     if torch.cuda.is_available():
         return
+    monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", card)
     monkeypatch.setenv("WITCH_TPU_NO_DAEMON", "1")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        witch_runner(argv)
+    with card_server(card):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            witch_runner(argv)
+        assert _n_jobs(card) == 1
     monkeypatch.delenv("WITCH_TPU_NO_DAEMON")
     idle = tmp_path / "no_daemon"
     monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", str(idle))
     with pytest.raises(RuntimeError, match="CUDA"):
         witch_runner(argv)
     assert not idle.exists() or not os.listdir(idle)
+
+
+def test_cli_does_not_use_a_cpu_server(daemon, tmp_path, monkeypatch):
+    """A live `serve --device cpu` on the CLI's daemon directory takes no
+    CLI run: the run stays in this process (without a card, it raises),
+    and the server's directory gets no job."""
+    from witch_tpu_torch import witch_runner
+    from witch_tpu_torch.server import server_device
+    assert server_device(daemon) == "cpu"
+    monkeypatch.setenv("WITCH_TPU_DAEMON_DIR", daemon)
+    monkeypatch.delenv("WITCH_TPU_NO_DAEMON", raising=False)
+    n = _n_jobs(daemon)
+    argv = _amino(tmp_path / "r", str(tmp_path / "missing.fasta"))
+    if torch.cuda.is_available():
+        with pytest.raises(FileNotFoundError, match="query sequences"):
+            witch_runner(argv)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            witch_runner(argv)
+    assert _n_jobs(daemon) == n

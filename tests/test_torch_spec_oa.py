@@ -113,3 +113,33 @@ def test_thread_error_stops_the_run(queries, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="speculative thread failed"):
         _run(tmp_path / "out", queries)
     assert not (tmp_path / "out" / "aligned.fasta").exists()
+
+
+def test_unjoined_thread_is_waited_out(queries, tmp_path, monkeypatch):
+    """A run that stops between the speculative start and the align
+    stage's join raises its own error only once the speculative thread
+    has ended, so that none of its launches falls into a later run."""
+    import time
+    import witch_tpu_torch.aligner as aligner
+    import witch_tpu_torch.pipeline as pipeline
+    orig = aligner.DeviceAligner.aligned_columns_batch
+    ended = []
+
+    def slow_quiet(self, pairs, Ldmax, quiet=False):
+        if quiet:
+            time.sleep(1.0)
+        out = orig(self, pairs, Ldmax, quiet)
+        ended.append(quiet)
+        return out
+
+    def fail(path):
+        raise OSError("checkpoint unreadable")
+
+    monkeypatch.delenv("WITCH_TPU_SPEC_OA", raising=False)
+    monkeypatch.setattr(aligner.DeviceAligner, "aligned_columns_batch",
+                        slow_quiet)
+    monkeypatch.setattr(pipeline, "read_checkpoint", fail)
+    with pytest.raises(OSError, match="checkpoint unreadable"):
+        _run(tmp_path / "out", queries)
+    assert ended == [True]
+    assert not aligner._PENDING

@@ -16,10 +16,10 @@ __all__ = ["resolve_device", "witch_runner"]
 
 def witch_runner(argv=None):
     """CLI entry: the reference's witch.py flags (cli.py). Runs on CUDA
-    and raises without it. When a live server (server.py) already
-    watches server.default_jobs_dir(), the run is submitted to it
-    instead; WITCH_TPU_NO_DAEMON=1 keeps it in this process. The CLI
-    never starts a server."""
+    and raises without it. When a live server (server.py) on a CUDA
+    device already watches server.default_jobs_dir(), the run is
+    submitted to it instead; WITCH_TPU_NO_DAEMON=1 keeps it in this
+    process. The CLI never starts a server."""
     import os
     import sys
     import time
@@ -31,6 +31,9 @@ def witch_runner(argv=None):
         s1 = time.time()
         res = server.run_via_daemon(cmdline_args)
         if res is not None:
+            if not server.on_cuda(res.get("device")):
+                raise RuntimeError("the daemon ran the job on %s, not on "
+                                   "CUDA" % res.get("device"))
             if not res.get("ok"):
                 sys.stderr.write("ERROR (daemon job): %s\n" % res.get("error"))
                 raise SystemExit(1)

@@ -151,6 +151,10 @@ class DeviceAligner:
         return cols
 
 
+# speculative runs started and not yet joined
+_PENDING: List["SpeculativeOA"] = []
+
+
 def _pair_key(idx, codes):
     return int(idx), np.asarray(codes, np.int32).tobytes()
 
@@ -187,6 +191,8 @@ class SpeculativeOA:
         error."""
         t0 = time.time()
         self.thread.join()
+        if self in _PENDING:
+            _PENDING.remove(self)
         if self.error is not None:
             raise self.error
         t_wait = time.time() - t0
@@ -216,6 +222,15 @@ def speculative_oa_start(ens, device, banks, pairs, Ldmax: int) -> None:
     aligner = DeviceAligner(ens, device, banks)
     ens._spec_oa = SpeculativeOA(aligner, pairs, Ldmax,
                                  aligner.banks_t[0].device)
+    _PENDING.append(ens._spec_oa)
+
+
+def wait_speculative() -> None:
+    """Wait out the speculative threads that no join took (a run that
+    stopped between their start and the align stage), so that none of
+    their launches, kernel ms or device work falls into a later run."""
+    while _PENDING:
+        _PENDING.pop().thread.join()
 
 
 def validate_oa(aligner: DeviceAligner, pairs, Ldmax: int,

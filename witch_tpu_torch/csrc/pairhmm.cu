@@ -6,8 +6,10 @@
 // device anchor embedding calls (backbone_consistency.py:
 // _device_embedding). Recurrences and the plain version: ops/pairhmm.py.
 //
-// Bound: operations. A pair of lengths LA x LB does 22 f32 operations a
-// cell and reads only its two code rows, so the work is LA * LB cells of
+// Bound: operations. The recurrence does 17 f32 operations a cell (the
+// previous row's three values rescaled 3, M 5, X 3, Y 3, the row max 3;
+// this kernel's scan of its chunks' affine maps comes on top) and a pair
+// reads only its two code rows, so the work is LA * LB cells of
 // arithmetic; the rows are never written to device memory unless they do
 // not fit in shared memory.
 //

@@ -504,7 +504,17 @@ def read_checkpoint(path: str) -> Dict[str, str]:
 def main_alignment_process(device=None):
     """The WITCH pipeline end to end (scenarios A, C and D; witch-ng or
     old-witch). `device` defaults to CUDA (raises without it); pass
-    device="cpu" to run the kernels' plain versions."""
+    device="cpu" to run the kernels' plain versions. A speculative OA
+    run that the align stage did not join (the run stopped earlier) is
+    waited out before this returns or raises."""
+    from .aligner import wait_speculative
+    try:
+        return _alignment_process(device)
+    finally:
+        wait_speculative()
+
+
+def _alignment_process(device):
     device = resolve_device(device)
     t_start = time.time()
     shard = os.environ.get("WITCH_TPU_SHARD", "")

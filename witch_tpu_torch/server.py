@@ -10,18 +10,20 @@ same file protocol:
     jobs/<name>.running  written when picked up
     jobs/<name>.done     JSON: {"ok": bool, "output": path|dict|None,
                                 "error": str|None, "seconds": float,
-                                "launches": {kernel: count}}
-    jobs/server.alive    the server's pid; its mtime is a heartbeat
+                                "launches": {kernel: count},
+                                "device": str}
+    jobs/server.alive    JSON: {"pid": int, "device": str}; its mtime is
+                         a heartbeat
 
 Usage:
     python -m witch_tpu_torch serve -d JOBS_DIR [--max-idle S] [--device D]
     python -m witch_tpu_torch submit -d JOBS_DIR -- ARGS
 
 The CLI (witch_runner) submits its run to a daemon only when a live one
-already watches default_jobs_dir(); it never starts one. Left out of the
-reference: the device prewarm and keep-alive and the accelerator probe
-(they kept a remote TPU session alive), and the hot-reload of modules
-between jobs.
+on a CUDA device already watches default_jobs_dir(); it never starts
+one. Left out of the reference: starting a daemon (ensure_daemon), the
+device prewarm and keep-alive and the accelerator probe (they kept a
+remote TPU session alive), and the hot-reload of modules between jobs.
 """
 
 from __future__ import annotations
@@ -89,13 +91,17 @@ def _claim(jobs_dir):
     return None
 
 
-def _heartbeat(alive, stop):
+def _write_alive(alive, device):
+    with open(alive, "w") as f:
+        json.dump({"pid": os.getpid(), "device": str(device)}, f)
+
+
+def _heartbeat(alive, device, stop):
     while not stop.wait(5.0):
         try:
             os.utime(alive)
         except OSError:
-            with open(alive, "w") as f:
-                f.write(str(os.getpid()))
+            _write_alive(alive, device)
 
 
 def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
@@ -109,12 +115,11 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
     os.environ["WITCH_TPU_IN_SERVER"] = "1"
     os.makedirs(jobs_dir, exist_ok=True)
     alive = os.path.join(jobs_dir, "server.alive")
-    with open(alive, "w") as f:
-        f.write(str(os.getpid()))
+    _write_alive(alive, device)
     stop = threading.Event()
     # the heartbeat beats during long jobs too (submitters take a stale
     # mtime for a dead server)
-    threading.Thread(target=_heartbeat, args=(alive, stop),
+    threading.Thread(target=_heartbeat, args=(alive, device, stop),
                      daemon=True).start()
     print("witch_tpu_torch server: watching %s on %s" % (jobs_dir, device),
           flush=True)
@@ -130,7 +135,8 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
                 time.sleep(poll_s)
                 continue
             t0 = time.time()
-            result = {"ok": False, "output": None, "error": None}
+            result = {"ok": False, "output": None, "error": None,
+                      "device": str(device)}
             _build.reset_launches()
             try:
                 with open(os.path.join(jobs_dir, name + ".job")) as f:
@@ -230,37 +236,26 @@ def default_jobs_dir() -> str:
         os.path.join(os.path.expanduser("~"), ".witch_tpu_torch", "daemon"))
 
 
-def ensure_daemon(jobs_dir: str = None, max_idle_s: float = 7200.0,
-                  device=None) -> str:
-    """Start a server as a detached process if no live one watches
-    jobs_dir, and wait (up to 120 s) for its heartbeat. Returns jobs_dir.
-    Only a caller that asks for a daemon calls this: the CLI does not."""
-    import subprocess
-    jobs_dir = jobs_dir or default_jobs_dir()
-    os.makedirs(jobs_dir, exist_ok=True)
-    if server_alive(jobs_dir):
-        return jobs_dir
-    cmd = [sys.executable, "-m", "witch_tpu_torch", "serve", "-d", jobs_dir,
-           "--max-idle", str(float(max_idle_s))]
-    if device is not None:
-        cmd += ["--device", str(device)]
-    with open(os.path.join(jobs_dir, "server.log"), "ab") as log:
-        subprocess.Popen(
-            cmd, stdout=log, stderr=log, stdin=subprocess.DEVNULL,
-            start_new_session=True,
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    t0 = time.time()
-    while time.time() - t0 < 120.0 and not server_alive(jobs_dir, 15.0):
-        time.sleep(0.5)
-    return jobs_dir
+def server_device(jobs_dir: str):
+    """The device of the server watching jobs_dir, as its server.alive
+    records it, or None."""
+    try:
+        with open(os.path.join(jobs_dir, "server.alive")) as f:
+            return json.load(f).get("device")
+    except (OSError, ValueError, AttributeError):
+        return None
+
+
+def on_cuda(device) -> bool:
+    return str(device).split(":")[0] == "cuda"
 
 
 def run_via_daemon(argv, cwd=None):
     """Submit this CLI run to the live server watching default_jobs_dir()
-    and wait; None when no live server watches it (the caller runs in
-    process) or the server died during the job."""
+    and wait; None when no live server on a CUDA device watches it (the
+    caller runs in process) or the server died during the job."""
     jobs_dir = default_jobs_dir()
-    if not server_alive(jobs_dir):
+    if not server_alive(jobs_dir) or not on_cuda(server_device(jobs_dir)):
         return None
     try:
         return submit(jobs_dir, argv, cwd=cwd or os.getcwd(),

@@ -3,10 +3,11 @@ checkouts of the repository on one CUDA card, and compare their outputs
 byte for byte.
 
     python3 witch_tpu_torch/tools/compare_dna1k.py --tree A --tree B [--out DIR]
-        [--full-search N] [--env I:KEY=VALUE ...]
+        [--full-search N] [--env I:KEY=VALUE ...] [--queries Q]
 
 The data is scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
-20260820 (1,000 backbone sequences and tree, 1,000 query fragments).
+20260820 (1,000 backbone sequences and tree, 1,000 query fragments);
+--queries Q makes Q fragments instead (more alignment pairs per model).
 With --full-search N the runs take its first N queries with
 --full-search-results 1 (the device flank prefilter, then native domain
 definition of the pairs it keeps). --env I:KEY=VALUE sets KEY in the
@@ -19,7 +20,7 @@ runtime_breakdown.txt lines of the device Forward scoring, the device
 gate (or prefilter, with the flank kernel's ms and launches), the native
 domain definition, the exact-f32 overlay, the alignment (device
 posterior+OA or its speculative join, with the OA kernel's ms and
-launches) and the total; then one JSON line comparing
+launches), the per-query alignment stage and the total; then one JSON line comparing
 every run's aligned.fasta, aligned.masked.fasta and persisted
 hmmsearch.results.* files with the first run's, naming any row or file
 that differs. In the full-search mode each run records, through the
@@ -148,6 +149,7 @@ def main():
                                                   "compare_dna1k"))
     ap.add_argument("--full-search", type=int, default=0)
     ap.add_argument("--env", action="append", default=[])
+    ap.add_argument("--queries", type=int, default=1000)
     a = ap.parse_args()
     a.out = os.path.abspath(a.out)       # the runs' working directories differ
     trees = [os.path.abspath(t) for t in a.tree]
@@ -160,7 +162,8 @@ def main():
     data = os.path.join(a.out, "data")
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),
-                    "--n", "1000", "--queries", "1000", "--seed", "20260820",
+                    "--n", "1000", "--queries", str(a.queries),
+                    "--seed", "20260820",
                     "--out", data], check=True, capture_output=True,
                    timeout=600)
     queries, extra = os.path.join(data, "queries.fasta"), []
@@ -193,7 +196,7 @@ def main():
             if "device Forward" in ln or "Total runtime" in ln
             or "all-vs-all Forward" in ln or "device gate" in ln
             or "native domaindef" in ln or "posterior+OA" in ln
-            or "overlay" in ln]
+            or "overlay" in ln or "per-query alignment" in ln]
         print(json.dumps(dict(tree=t, env=envs[ti], run=i, wall_s=wall,
                               lines=lines, card=card)), flush=True)
         outs.append(outdir)
