@@ -52,7 +52,8 @@ Phases:
      (600/600 rows, the flank kernel launched, full_search_replay below)
      and (3c) with -m old-witch (every query placed with its residues or
      ignored, 0 above-guard OA mismatches against native over all its
-     pairs);
+     pairs, the query rows against the JAX package's,
+     tests/golden/ref_amino500_ow.*, at least AMINO500_OW_JAX);
   4. seeded DNA scenario D, 1,000 backbone + 1,000 queries
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
@@ -69,23 +70,33 @@ Phases:
      warp-per-pair kernel, its ms and bounds, the copied rows, 500
      sampled dropped pairs unreported by native evaluate_targets, 300
      sampled kept pairs equal between native domain definition on the
-     device rows and on its own f64 rows); then scenario C on the
+     device rows and on its own f64 rows); then (4b) scenario C on the
      same data (-e left out): the device distance counts equal numpy
-     float64, every query placed or ignored, backbone rows intact;
+     float64, every query placed or ignored, backbone rows intact, the
+     query rows against the JAX package's (ref_dna1k_c.*, at least
+     DNA1K_C_JAX);
      (4g) the reference WITCH's DNA example against its oracle (all
      1,000 masked rows), where tests/test_golden.py finds its data, or a
      line saying the data is absent;
   5. scenario A: -i of 300 ungapped full-length rows and 100 fragments
      (make_scale_dataset.py) with --backbone-size 100: every input
      sequence in the output with its residues (or ignored), masked rows
-     flush, the gate line; (5b) its gate envelopes replayed through the
-     null2 kernel (ms, launches, bound) and, on 1,024 seeded envelopes,
-     its plain version within 1e-4 relative; (5c) the anchor embedding
-     of its 100 backbone sequences on the device path (2,400 sequence-
-     anchor pairs) through the pair-HMM kernel and its plain version, E
-     within 2e-4, the kernel's ms, plain's and the bound at the path's
-     own calls; (5d) scenario A again with WITCH_TPU_DEVICE_EMBED=1:
-     phase 5's checks and the pair-HMM kernel launched;
+     flush, the gate line, every masked row against the JAX package's
+     (ref_scenA.*, at least SCEN_A_JAX); (5b) its gate envelopes
+     replayed through the null2 kernel (ms, launches, bound) and, on
+     1,024 seeded envelopes, its plain version within 1e-4 relative;
+     (5c) nvcc -Xptxas -v of csrc/pairhmm.cu, no instance spilling; the
+     anchor embedding of its 100 backbone sequences on the device path
+     (2,400 sequence-anchor pairs) through the pair-HMM kernel and its
+     plain version, E within 2e-4, the register kernel at every width,
+     the kernel's ms beside the first version's on the same calls,
+     plain's and the bound; then dna1k's data at the default
+     1,000-sequence backbone (24,000 pairs): the kernel's ms, launches,
+     cells and bound, the first version's ms, plain on its one launch,
+     within 2e-4 a residue; (5d) scenario A again with
+     WITCH_TPU_DEVICE_EMBED=1: phase 5's checks, the rows against the
+     same golden, and the pair-HMM kernel launched, the register kernel
+     at every width;
   6. {"kernels": [...]} JSON (each kernel's launches on the main path,
      error, ms and plain ms, and its bound: the larger of its operations
      at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
@@ -94,7 +105,9 @@ Phases:
      replay's and its stored rows' bound, 17 B per state-row; flank's the
      full-search replays', the bound of its outputs and stored specials,
      rows_bytes_ms, and its layout at each width; pairhmm's main path is
-     scenario A with WITCH_TPU_DEVICE_EMBED=1), the
+     scenario A with WITCH_TPU_DEVICE_EMBED=1, its entry also the first
+     version's ms, the layout at each width, each instance's registers,
+     spills and warps a SM, and the 24,000-pair run's numbers), the
      nvidia-smi line, a check that no module of JAX or witch_tpu was
      loaded, and as the last line {"ok": true, "device": {...}}.
 
@@ -134,6 +147,19 @@ WALL = {}               # CLI wall seconds by run label
 DNA1K_JAX_MIN = 1000
 JAX_DNA1K_IGNORED = ()
 DNA1K_DIAG = 20
+# the JAX package's rows of three more paths (tests/golden/, made on the
+# CPU with JAX_PLATFORMS=cpu python -m witch_tpu, commands in PERF.md):
+# golden file and the rows equal on the first chip run, below which the
+# check fails. Scenario A: every masked row (phases 5 and 5d, with and
+# without the device embedding: its rows are the same); dna1k scenario C
+# (4b) and amino500 -m old-witch (3c): the query rows
+SCEN_A_JAX = ("ref_scenA.aligned.masked.fasta.gz", 400)
+DNA1K_C_JAX = ("ref_dna1k_c.queries.masked.fasta.gz", 1000)
+AMINO500_OW_JAX = ("ref_amino500_ow.queries.masked.fasta.gz", 500)
+JAX_DIFF_SHOWN = 10
+# the pair-HMM embedding at dna1k's data and the default 1,000-sequence
+# backbone (5c): 24,000 sequence-anchor pairs
+DNA1K_BACKBONE = 1000
 # bounds: H100 SXM f32 rate outside the tensor cores, f64 rate and HBM
 # rate (the card's published peaks); operations per DP cell (model
 # state x residue, at the models' own M), read off the plain versions:
@@ -227,6 +253,38 @@ def read_fasta_dict(path):
 
 
 # ---------------------------------------------------------------------
+def rows_vs_jax(label, masked, golden, names=None):
+    """A run's masked rows against the JAX package's (golden: (file under
+    tests/golden/, the least count of equal rows)): prints n/N rows equal
+    and names up to JAX_DIFF_SHOWN differing rows, each with its first
+    differing column (or that the run has no row for it); fails below the
+    least count. `names`: the rows compared (default: all the golden's)."""
+    from witch_tpu_torch.io.fasta import read_fasta
+    path, least = golden
+    with gzip.open(os.path.join(GOLD, path), "rt") as f:
+        ref = dict(read_fasta(f))
+    names = list(ref) if names is None else list(names)
+    differ = [n for n in names if masked.get(n) != ref.get(n)]
+    say("  %s vs the JAX package's rows (%s): %d/%d rows equal"
+        % (label, path, len(names) - len(differ), len(names)))
+    for n in differ[:JAX_DIFF_SHOWN]:
+        a, b = masked.get(n), ref.get(n)
+        if a is None or b is None:
+            say("    row %s: %s" % (n, "no row in this run" if a is None
+                                    else "not in the golden"))
+            continue
+        col = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        say("    row %s differs from column %d (%d columns differ)"
+            % (n, col, sum(x != y for x, y in zip(a, b))
+               + abs(len(a) - len(b))))
+    check(len(names) - len(differ) >= least,
+          "%s: %d/%d rows equal the JAX package's (at least %d, the count "
+          "of the first chip run)" % (label, len(names) - len(differ),
+                                      len(names), least))
+    return len(names) - len(differ)
+
+
 def phase_forward(dev, result):
     import numpy as np
     import torch
@@ -1593,6 +1651,10 @@ def phase_old_witch(tmp, rec):
     placed, n_ign, bad = _query_rows_ok(outdir, qpath)
     check(not bad, "old-witch: every query placed with its residues (%d) "
           "or ignored (%d)" % (placed, n_ign))
+    from witch_tpu_torch.io.fasta import read_fasta
+    rows_vs_jax("old-witch", read_fasta_dict(os.path.join(
+        outdir, "aligned.masked.fasta")), AMINO500_OW_JAX,
+        [n for n, _ in read_fasta(qpath)])
     _, _, pairs, Ldmax = rec.oa[-1]
     v = validate_oa(REC_ALIGNER[0], pairs, Ldmax)
     check(v["above_guard"] == 0,
@@ -1640,6 +1702,9 @@ def phase_scenario_c(tmp, rec):
     badb = [k for k, s in bb.items() if masked.get(k) != s.upper()]
     check(not badb, "scenario C: %d/%d backbone rows equal the input"
           % (len(bb) - len(badb), len(bb)))
+    from witch_tpu_torch.io.fasta import read_fasta
+    rows_vs_jax("scenario C", masked, DNA1K_C_JAX, [n for n, _ in read_fasta(
+        os.path.join(data, "queries.fasta"))])
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
           "scenario C: forward, null2 and oa launched %s" % launches)
     return launches
@@ -1693,44 +1758,74 @@ def phase_scenario_a(tmp, rec, label="scenario A", out="scenA_out"):
           % (label, len(masked), widths))
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
           "%s: forward, null2 and oa launched %s" % (label, launches))
+    rows_vs_jax(label, masked, SCEN_A_JAX)
     return launches
 
 
 def phase_scenario_a_embed(tmp, rec):
     """Scenario A again on phase 5's input with WITCH_TPU_DEVICE_EMBED=1:
     phase 5's checks, and the pair-HMM kernel launched."""
+    import witch_tpu_torch.ops.pairhmm as ph
+    orig, seen = ph.pairhmm_layout, {}
+
+    def layout(C, LB):
+        seen[LB] = orig(C, LB)
+        return seen[LB]
+
     os.environ["WITCH_TPU_DEVICE_EMBED"] = "1"
+    ph.pairhmm_layout = layout
     try:
         launches = phase_scenario_a(
             tmp, rec, "scenario A with WITCH_TPU_DEVICE_EMBED=1",
             "scenA_embed_out")
     finally:
         del os.environ["WITCH_TPU_DEVICE_EMBED"]
-    check(launches["pairhmm"] > 0, "scenario A with WITCH_TPU_DEVICE_EMBED=1:"
-          " the pair-HMM kernel launched %d times" % launches["pairhmm"])
+        ph.pairhmm_layout = orig
+    check(launches["pairhmm"] > 0 and seen
+          and all(v[0] == 0 for v in seen.values()),
+          "scenario A with WITCH_TPU_DEVICE_EMBED=1: the pair-HMM kernel "
+          "launched %d times, the register kernel at every width (LB: "
+          "layout, CH, rows and codes in shared memory %s)"
+          % (launches["pairhmm"], seen))
     return launches
 
 
 def phase_embed(tmp, dev, result):
-    """The anchor embedding of scenario A's 100 backbone sequences (phase
-    5's backbone) on the device path: every (sequence, anchor) pair
-    through the kernel and through the plain version, E within 2e-4 (the
-    bar of tests/test_pairhmm_forward.py); the kernel's ms on the
-    path's own calls, plain's, and the bound (witch_tpu_torch/tools/
-    pairhmm_bench.py's record_calls and time_calls)."""
+    """The pair-HMM kernels on anchor embeddings of the device path
+    (witch_tpu_torch/tools/pairhmm_bench.py's record_calls, time_calls
+    and ptxas): nvcc -Xptxas -v of csrc/pairhmm.cu, no instance spilling;
+    scenario A's 100 backbone sequences (phase 5's backbone, 2,400
+    sequence-anchor pairs) through the kernel and through the plain
+    version, E within 2e-4 (the bar of tests/test_pairhmm_forward.py),
+    the register kernel at every width, the kernel's ms on the path's own
+    calls beside the first version's on the same calls, plain's and the
+    bound; then dna1k's data (phase 4's) at the default 1,000-sequence
+    backbone, 24,000 pairs: the kernel's ms, launches, cells and bound,
+    the first version's ms, and plain on its one launch (no warm-up),
+    within 2e-4 a residue."""
     import importlib.util
     import numpy as np
     from witch_tpu_torch import _build
     from witch_tpu_torch.core.alphabet import ALPHABETS
     from witch_tpu_torch.io.fasta import read_fasta
 
-    say("== phase 5c: pair-HMM anchor embedding of scenario A's backbone, "
-        "kernel vs plain")
+    say("== phase 5c: pair-HMM anchor embeddings, kernel vs plain and the "
+        "first version")
     spec = importlib.util.spec_from_file_location(
         "witch_pairhmm_bench", os.path.join(
             ROOT, "witch_tpu_torch", "tools", "pairhmm_bench.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    regs = tool.ptxas()
+    for r in regs:
+        say("  ptxas %s: %d registers, %d B stack, spill stores %d B, "
+            "loads %d B; %d warps a SM" % (
+                r["kernel"], r["registers"], r["stack"], r["spill_stores"],
+                r["spill_loads"], r["warps_per_sm"]))
+    check(len(regs) == 12 and not any(r["spill_stores"] or r["spill_loads"]
+                                       for r in regs),
+          "pairhmm: no spills in the %d kernel instances" % len(regs))
+
     al = ALPHABETS["dna"]
     codes = [al.encode(x.replace("-", "").upper()) for _, x in read_fasta(
         os.path.join(tmp, "scenA_out", "backbone", "backbone.aln.fasta"))]
@@ -1744,18 +1839,58 @@ def phase_embed(tmp, dev, result):
           "pairhmm: anchor embedding [%d, %d] (%d pairs), kernel vs plain "
           "max |dE| %.3g <= 2e-4, %d launches, %.2f s"
           % (n, A, n * A, err, n_k, wall))
-    r = tool.time_calls(calls, 3)
+    r = tool.time_calls(calls, 3, first=True)
+    check(all(v[0] == 0 for v in r["layouts"].values()),
+          "pairhmm: the register kernel at every width of the path (LB: "
+          "layout, CH, rows and codes in shared memory %s)" % r["layouts"])
     b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
     check(abs(b_ms - r["bound_ms"]) <= 1e-9 * b_ms,
           "pairhmm: the tool's bound equals the script's")
-    say("  %d launches at the path's shapes: kernel %.3f ms, plain %.1f ms, "
-        "max |d log-odds| %.3g nats; %.4g cells, bound %.4f ms (%s)"
-        % (len(calls), r["ms"], r["plain_ms"], r["max_abs_err_logodds"],
+    say("  %d launches at the path's shapes: kernel %.3f ms (the first "
+        "version %.3f ms on the same calls), plain %.1f ms; max |d "
+        "log-odds| %.3g nats vs plain, %.3g vs the first version; %.4g "
+        "cells, bound %.4f ms (%s)"
+        % (len(calls), r["ms"], r["ms_first_version"], r["plain_ms"],
+           r["max_abs_err_logodds"], r["max_abs_diff_first_version"],
            r["cells"], b_ms, b_by))
-    result["pairhmm"] = dict(max_abs_err=err, ms=r["ms"],
-                             plain_ms=r["plain_ms"], cells=r["cells"],
-                             bytes=r["bytes"], pairs=n * A,
-                             max_abs_err_logodds=r["max_abs_err_logodds"])
+    result["pairhmm"] = dict(
+        max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+        cells=r["cells"], bytes=r["bytes"], pairs=n * A,
+        max_abs_err_logodds=r["max_abs_err_logodds"],
+        ms_first_version=r["ms_first_version"],
+        max_abs_diff_first_version=r["max_abs_diff_first_version"],
+        layouts=r["layouts"], ptxas=regs)
+
+    t0 = time.time()
+    codes, al = tool.backbone_codes(DNA1K_BACKBONE,
+                                    data=os.path.join(tmp, "dna1k"))
+    n0 = _build.LAUNCHES["pairhmm"]
+    E_k, calls = tool.record_calls(codes, al, dev)
+    n_k, wall = _build.LAUNCHES["pairhmm"] - n0, time.time() - t0
+    n, A = E_k.shape
+    r = tool.time_calls(calls, 3, first=True, plain_warm=False)
+    b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
+    check(np.isfinite(E_k).all() and n == DNA1K_BACKBONE
+          and r["max_abs_err_per_residue"] <= 2e-4
+          and all(v[0] == 0 for v in r["layouts"].values()),
+          "pairhmm: dna1k's data at a %d-sequence backbone, embedding [%d, "
+          "%d] (%d pairs) in %d launches (%.2f s with the host's part), "
+          "the register kernel (%s), kernel vs plain max |d log-odds| "
+          "%.3g nats, %.3g a residue <= 2e-4"
+          % (DNA1K_BACKBONE, n, A, n * A, n_k, wall, r["layouts"],
+             r["max_abs_err_logodds"], r["max_abs_err_per_residue"]))
+    say("  24,000 pairs: kernel %.3f ms (the first version %.3f ms on the "
+        "same calls, max |d log-odds| %.3g), plain %.1f ms; %.4g cells, "
+        "bound %.4f ms (%s)"
+        % (r["ms"], r["ms_first_version"], r["max_abs_diff_first_version"],
+           r["plain_ms"], r["cells"], b_ms, b_by))
+    result["pairhmm_dna1k_backbone"] = dict(
+        max_abs_err=r["max_abs_err_per_residue"], ms=r["ms"],
+        plain_ms=r["plain_ms"], cells=r["cells"], bound_ms=b_ms,
+        bound_by=b_by, launches=n_k, pairs=n * A,
+        ms_first_version=r["ms_first_version"],
+        max_abs_diff_first_version=r["max_abs_diff_first_version"],
+        layouts=r["layouts"])
 
 
 def main():
@@ -1862,10 +1997,20 @@ def main():
                                 "layouts", {}).items()}
             extras += ("bound_by", "pairs")
         if name == "pairhmm":
-            k.update(pairs=r["pairs"],
-                     max_abs_err_logodds=r["max_abs_err_logodds"])
+            # the first version's ms on the same calls, the layout (layout,
+            # CH, rows and codes in shared memory) at each width, and each
+            # instance's registers, spills and warps a SM
+            k.update({x: r[x] for x in (
+                "pairs", "max_abs_err_logodds", "ms_first_version",
+                "max_abs_diff_first_version", "layouts")})
+            k["ptxas"] = {p["kernel"]: [p["registers"], p["spill_stores"],
+                                        p["spill_loads"], p["warps_per_sm"]]
+                          for p in r["ptxas"]}
+            extras += ("bound_by", "pairs", "cells", "ms_first_version",
+                       "max_abs_diff_first_version", "layouts")
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
-                    "4d_dna1k", "4e_dna1k", "bench", "scenario_a"):
+                    "4d_dna1k", "4e_dna1k", "bench", "scenario_a",
+                    "dna1k_backbone"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],

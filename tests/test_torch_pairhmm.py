@@ -88,20 +88,49 @@ def _codes(seed, n, lo, hi):
                                  np.int32) for _ in range(n)]
 
 
-@pytest.mark.parametrize("chunk", [4, 1024])
+@pytest.mark.parametrize("chunk", [4, 1024, None])
 def test_device_embedding_matches_jax(chunk):
     """The port's _device_embedding (plain version on the CPU) against
-    the JAX package's, through the length sort and the chunks."""
+    the JAX package's, through the length sort and the chunks (None: every
+    pair in one call, the port's default, against the JAX package's
+    default chunk of 1,024)."""
     from witch_tpu.backbone_consistency import _device_embedding as jax_emb
     from witch_tpu_torch.backbone_consistency import _device_embedding
     em = _emission_odds(ALPHABETS["dna"], 0.30)
     codes = _codes(3, 7, 40, 90)
     anchors = [0, 4]
-    want = jax_emb(codes, anchors, em, 0.02, 0.75, chunk=chunk)
+    want = jax_emb(codes, anchors, em, 0.02, 0.75, chunk=chunk or 1024)
     got = _device_embedding(codes, anchors, em, 0.02, 0.75, "cpu",
                             chunk=chunk)
     assert got.shape == (7, 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_device_embedding_one_call_equals_chunks(monkeypatch):
+    """Every pair in one call (the default) gives exactly the E of chunks
+    of 1,024 and of 5 on the CPU: each pair's log-odds depends only on
+    its own codes and lengths, across unequal lengths and more pairs
+    than a chunk."""
+    import witch_tpu_torch.ops.pairhmm as ph
+    from witch_tpu_torch.backbone_consistency import _device_embedding
+    em = _emission_odds(ALPHABETS["dna"], 0.30)
+    codes = _codes(11, 9, 20, 70)
+    anchors = [2, 7, 5]
+    calls = []
+    orig = ph.pairhmm_forward_logodds
+
+    def counted(*a):
+        calls.append(a[0].shape)
+        return orig(*a)
+
+    monkeypatch.setattr(ph, "pairhmm_forward_logodds", counted)
+    one = _device_embedding(codes, anchors, em, 0.02, 0.75, "cpu")
+    assert calls == [(27, max(len(c) for c in codes))]
+    for chunk in (1024, 5):
+        got = _device_embedding(codes, anchors, em, 0.02, 0.75, "cpu",
+                                chunk=chunk)
+        np.testing.assert_array_equal(got, one)
+    assert len(calls) == 1 + 1 + 6
 
 
 def test_anchor_embedding_device_flag():
@@ -124,19 +153,50 @@ def test_anchor_embedding_device_flag():
 
 
 def test_kernel_layout_by_width():
-    """Where the kernel keeps a warp's rows and B's codes, by B's width:
-    both in shared memory at the repo's lengths, then the rows in device
-    memory, then both."""
+    """Which kernel runs, by B's width: the register kernel up to 32 x 48
+    - 1 = 1,535 columns (the repo's anchors, 1,271-1,357 residues, at CH
+    44), then the first version, its rows and codes in shared memory,
+    then its rows in device memory, then both."""
     from witch_tpu_torch import _build
-    from witch_tpu_torch.ops.pairhmm import PH_WARPS, pairhmm_layout
+    from witch_tpu_torch.ops.pairhmm import (PH_CH, PH_WARPS,
+                                             first_version_smem,
+                                             pairhmm_layout)
     C = 17
-    assert pairhmm_layout(C, 1400) == (True, True)
-    assert pairhmm_layout(C, 20000) == (False, True)
-    assert pairhmm_layout(C, 60000) == (False, False)
+    assert pairhmm_layout(C, 1357) == (0, 44, False, False)
+    widest = 32 * PH_CH[-1] - 1
+    assert pairhmm_layout(C, widest) == (0, PH_CH[-1], False, False)
+    assert pairhmm_layout(C, widest + 1) == (1, 0, True, True)
+    assert pairhmm_layout(C, 20000) == (1, 0, False, True)
+    assert pairhmm_layout(C, 60000) == (1, 0, False, False)
     free = _build.SMEM_ROWS_MAX - 4 * C * C
-    widest = (free - 12 * PH_WARPS) // (13 * PH_WARPS)
-    assert pairhmm_layout(C, widest) == (True, True)
-    assert pairhmm_layout(C, widest + 1) == (False, True)
+    widest_smem = (free - 12 * PH_WARPS) // (13 * PH_WARPS)
+    assert pairhmm_layout(C, widest_smem) == (1, 0, True, True)
+    assert pairhmm_layout(C, widest_smem + 1) == (1, 0, False, True)
+    # the first version's own steps at the register kernel's widths
+    assert first_version_smem(C, 1400) == (True, True)
+    assert first_version_smem(C, widest) == (True, True)
+    # the register kernel holds B's codes as byte offsets 4 c: C <= 63
+    assert pairhmm_layout(63, 100)[:2] == (0, 8)
+    assert pairhmm_layout(64, 100) == (1, 0, True, True)
+
+
+@pytest.mark.parametrize("ch", list(range(8, 49, 4)))
+def test_register_layout_at_each_boundary(ch):
+    """LB = 32 CH - 1 is the widest B a CH instance takes (LB + 1 columns
+    from j = 0); 32 CH and 32 CH + 1 go to the next instance, past the
+    last to the first version; the instance below stops at 32 (CH - 4)
+    - 1."""
+    from witch_tpu_torch.ops.pairhmm import PH_CH, pairhmm_layout
+    assert ch in PH_CH
+    C = 17
+    nxt = [c for c in PH_CH if c > ch]
+    assert pairhmm_layout(C, 32 * ch - 1)[:2] == (0, ch)
+    for LB in (32 * ch, 32 * ch + 1):
+        assert pairhmm_layout(C, LB)[:2] == ((0, nxt[0]) if nxt else (1, 0))
+    if ch > PH_CH[0]:
+        assert pairhmm_layout(C, 32 * (ch - 4))[:2] == (0, ch)
+    else:
+        assert pairhmm_layout(C, 0)[:2] == (0, ch)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -153,28 +213,109 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
-    """The kernel against the plain version on the card, at scenario-A
-    lengths (1,200-1,400 DNA residues, 64 pairs; rows and codes in
-    shared memory), with rows too wide for shared memory (20,000 columns:
-    rows in a device buffer, codes in shared memory) and wider still
+    """Both kernels against the plain version on the card: the register
+    kernel at every CH instance, B at its widest (LB = 32 CH - 1, lengths
+    down to the instance below), and at scenario-A lengths (1,200-1,400
+    DNA residues, 64 pairs) also the first version (first_version=True)
+    against it, and at t_gg + t_mg > 1 (Y past B's end kept out of the
+    row max); the first version alone where rows are too wide for registers (1,536
+    and 4,000 columns: rows and codes in shared memory), too wide for
+    shared memory (20,000: rows in a device buffer) and wider still
     (60,000: both in device memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the pair-HMM kernel has no CPU "
                     "mode")
     from witch_tpu_torch import _build
-    for alpha, P, LA, LB, lo in (("dna", 64, 1400, 1400, 1200),
-                                 ("amino", 8, 300, 20000, 200),
-                                 ("dna", 4, 100, 60000, 90)):
+    from witch_tpu_torch.ops.pairhmm import PH_CH, pairhmm_layout
+    # (alphabet, pairs, LA, LB, least len A, least len B, first version,
+    #  delta)
+    cases = [("dna", 6, 3 * ch, 32 * ch - 1, 1, 32 * ch - 128, False, 0.02)
+             for ch in PH_CH]
+    cases += [("dna", 64, 1400, 1400, 1200, 1200, False, 0.02),
+              ("dna", 64, 1400, 1400, 1200, 1200, True, 0.02),
+              # t_gg + t_mg > 1: Y past LB would exceed the row's max
+              ("dna", 16, 600, 639, 300, 500, False, 0.3),
+              ("amino", 8, 300, 1536, 200, 1200, False, 0.02),
+              ("dna", 8, 300, 4000, 200, 3000, False, 0.02),
+              ("amino", 8, 300, 20000, 200, 200, False, 0.02),
+              ("dna", 4, 100, 60000, 90, 90, False, 0.02)]
+    for alpha, P, LA, LB, lo_a, lo_b, first, delta in cases:
         em = _emission_odds(ALPHABETS[alpha], 0.3)
-        cA, lA, cB, lB = _batch(7, P, LA, LB, lo, lo, alpha)
+        cA, lA, cB, lB = _batch(7, P, LA, LB, lo_a, max(1, lo_b), alpha)
         args = [torch.from_numpy(x).cuda() for x in (cA, lA, cB, lB)]
         emt = torch.from_numpy(em.astype(np.float32)).cuda()
         n0 = _build.LAUNCHES["pairhmm"]
-        k = port_logodds(*args, emt, 0.02, 0.75)
+        k = port_logodds(*args, emt, delta, 0.75, first_version=first)
         torch.cuda.synchronize()
         assert _build.LAUNCHES["pairhmm"] == n0 + 1
-        p = pairhmm_forward_logodds_plain(*args, emt, 0.02, 0.75)
+        p = pairhmm_forward_logodds_plain(*args, emt, delta, 0.75)
         norm = np.minimum(lA, lB).astype(np.float64)
         err = np.abs(k.cpu().numpy() - p.cpu().numpy()) / norm
+        want = pairhmm_layout(em.shape[0], LB)[0]
         assert np.isfinite(k.cpu().numpy()).all()
-        assert err.max() < 2e-4, (alpha, err.max())
+        assert err.max() < 2e-4, (alpha, LB, first, want, err.max())
+        if first:
+            reg = port_logodds(*args, emt, delta, 0.75).cpu().numpy()
+            assert want == 0 and np.abs(reg - k.cpu().numpy()).max() \
+                <= 1e-4, "register kernel vs the first version"
+
+
+def _bench_tool():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "witch_pairhmm_bench", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "witch_tpu_torch", "tools", "pairhmm_bench.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def test_bench_tool_reads_ptxas_and_occupancy():
+    """tools/pairhmm_bench.py's reading of nvcc -Xptxas -v (which
+    chip_smoke.py 5c checks for spills) and the warps a SM that
+    registers allow on sm_90 (65,536 registers, allocated per warp in
+    units of 256)."""
+    tool = _bench_tool()
+    reg = "_Z18pairhmm_reg_kernelILi44EEvPKiS1_PKhS1_PKfPfiiiffff"
+    first = "_Z14pairhmm_kernelPKiS0_PKhS0_PKfPfS5_iiiiiffff"
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % reg,
+        "ptxas info    : Function properties for %s" % reg,
+        "    40 bytes stack frame, 116 bytes spill stores, 76 bytes spill "
+        "loads",
+        "ptxas info    : Used 179 registers, 432 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % first,
+        "ptxas info    : Function properties for %s" % first,
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 448 bytes cmem[0]"])
+    assert tool.parse_ptxas(text) == [
+        dict(kernel="pairhmm_reg_kernel<44>", stack=40, spill_stores=116,
+             spill_loads=76, registers=179, warps_per_sm=11),
+        dict(kernel="pairhmm_kernel", stack=0, spill_stores=0,
+             spill_loads=0, registers=40, warps_per_sm=48)]
+    assert [tool.warps_per_sm(r) for r in (60, 168, 183, 202, 255)] == \
+        [32, 12, 11, 9, 8]
+
+
+def test_bench_tool_backbone_sizes(tmp_path):
+    """The bench's inputs: scenario A's 100 backbone sequences (2,400
+    pairs with 24 anchors), and dna1k's data at a 1,000-sequence
+    backbone (24,000 pairs) from a directory make_scale_dataset.py
+    wrote, every sequence full-length (1,271-1,356 residues, under the
+    register kernel's widest B)."""
+    import subprocess
+    import sys
+    tool = _bench_tool()
+    codes, al = tool.backbone_codes(100)
+    assert len(codes) == 100 and al.name == "dna"
+    data = tmp_path / "dna1k"
+    subprocess.run([sys.executable, tool.os.path.join(
+        tool.ROOT, "scripts", "make_scale_dataset.py"), "--n", "1000",
+        "--queries", "1000", "--seed", "20260820", "--out", str(data)],
+        check=True, capture_output=True, timeout=300)
+    codes, _ = tool.backbone_codes(1000, data=str(data))
+    lens = [len(c) for c in codes]
+    assert len(codes) == 1000 and 1200 < min(lens) <= max(lens) < 1535

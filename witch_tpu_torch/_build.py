@@ -124,9 +124,12 @@ def lib():
             so.witch_flank_warp.argtypes = [P] * 11 + [I] * 8 + [P]
             so.witch_pairhmm.argtypes = [P] * 7 + [I] * 5 + \
                 [ctypes.c_float] * 4 + [P]
+            so.witch_pairhmm_reg.argtypes = [P] * 6 + [I] * 5 + \
+                [ctypes.c_float] * 4 + [P]
             for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
                        so.witch_oa_warp, so.witch_flank, so.witch_flank_warp,
-                       so.witch_null2_ctas_per_sm, so.witch_pairhmm):
+                       so.witch_null2_ctas_per_sm, so.witch_pairhmm,
+                       so.witch_pairhmm_reg):
                 fn.restype = I
             _lib = so
         return _lib

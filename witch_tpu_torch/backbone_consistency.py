@@ -483,13 +483,16 @@ def consistency_align(names: List[str], seqs: List[str], molecule: str,
 
 
 def _device_embedding(codes32, anchors, em, delta, eps, device,
-                      chunk: int = 1024) -> np.ndarray:
+                      chunk: Optional[int] = None) -> np.ndarray:
     """[n, A] normalized pair-HMM forward log-odds on `device` (the
     counterpart of witch_tpu/backbone_consistency.py:_device_embedding):
-    pairs sorted by the sequence's length, cut into chunks, each chunk
-    through ops/pairhmm.py:pairhmm_forward_logodds (the kernel on CUDA,
-    the plain version on the CPU), each log-odds divided by
-    min(len_s, len_anchor)."""
+    pairs sorted by the sequence's length, through ops/pairhmm.py:
+    pairhmm_forward_logodds (the kernel on CUDA, the plain version on the
+    CPU), each log-odds divided by min(len_s, len_anchor). chunk=None
+    hands every pair to one call and copies the result back once; a
+    chunk cuts the sorted pairs into calls of that many, as the JAX
+    version does. Each pair's log-odds depends only on its own codes and
+    lengths."""
     import torch
 
     from .ops.pairhmm import pairhmm_forward_logodds
@@ -501,27 +504,29 @@ def _device_embedding(codes32, anchors, em, delta, eps, device,
     anc = np.zeros((A, LB), np.int32)
     for t, ai in enumerate(anchors):
         anc[t, :lens[ai]] = codes32[ai]
+    seqs = np.zeros((n, max(1, int(lens.max()))), np.int32)
+    for s, c in enumerate(codes32):
+        seqs[s, :lens[s]] = c
     emt = torch.as_tensor(np.asarray(em, np.float32), device=device)
 
-    pairs = [(s, t) for s in range(n) for t in range(A)]
-    pairs.sort(key=lambda st: lens[st[0]])
+    # pair r is (sequence ps[r], anchor pt[r]), sequences by length
+    order = np.argsort(lens, kind="stable")
+    ps = np.repeat(order, A)
+    pt = np.tile(np.arange(A), n)
+    step = len(ps) if chunk is None else chunk
+    outs = []
+    for off in range(0, len(ps), step):
+        s, t = ps[off:off + step], pt[off:off + step]
+        LA = max(1, int(lens[s].max()))
+        outs.append(pairhmm_forward_logodds(
+            *(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
+                seqs[s, :LA], lens[s].astype(np.int32), anc[t],
+                lens[anchors][t].astype(np.int32))),
+            emt, delta, eps))
+    lo = torch.cat(outs).cpu().numpy().astype(np.float64)
     E = np.zeros((n, A), np.float64)
-    for off in range(0, len(pairs), chunk):
-        blk = pairs[off:off + chunk]
-        P = len(blk)
-        LA = max(1, int(max(lens[s] for s, _ in blk)))
-        cA = np.zeros((P, LA), np.int32)
-        lA = np.zeros(P, np.int32)
-        tB = np.array([t for _, t in blk], np.int64)
-        for r, (s, _) in enumerate(blk):
-            cA[r, :lens[s]] = codes32[s]
-            lA[r] = lens[s]
-        lo = pairhmm_forward_logodds(
-            *(torch.from_numpy(x).to(device) for x in (
-                cA, lA, anc[tB], lens[anchors][tB].astype(np.int32))),
-            emt, delta, eps).cpu().numpy()
-        for r, (s, t) in enumerate(blk):
-            E[s, t] = lo[r] / max(1, min(lens[s], lens[anchors[t]]))
+    E[ps, pt] = lo / np.maximum(1, np.minimum(lens[ps],
+                                              lens[np.asarray(anchors)][pt]))
     return E
 
 

@@ -8,14 +8,53 @@
 //
 // Bound: operations. The recurrence does 17 f32 operations a cell (the
 // previous row's three values rescaled 3, M 5, X 3, Y 3, the row max 3;
-// this kernel's scan of its chunks' affine maps comes on top) and a pair
-// reads only its two code rows, so the work is LA * LB cells of
-// arithmetic; the rows are never written to device memory unless they do
-// not fit in shared memory.
+// the scan of the chunks' affine maps comes on top) and a pair reads
+// only its two code rows, so the work is LA * LB cells of arithmetic.
 //
-// Design (a first version):
-//  - one warp per pair, PH_WARPS pairs per CTA; the columns j = 0..LB of
-//    the pair's own B are cut into 32 contiguous chunks, one per lane;
+// Two kernels, picked by B's width (ops/pairhmm.py:pairhmm_layout):
+//
+// pairhmm_reg_kernel<CH> (LB + 1 <= 32 CH, CH in 8, 12, ..., 48, so B up
+// to 1,535 residues: every pair of the repo's data). One warp per pair
+// and per CTA; lane l owns the CH columns j = l CH .. l CH + CH - 1.
+//  - The previous row's M, X and Y live in the lane's registers (3 CH
+//    floats, fully unrolled loops, no dynamic index), so a row reads
+//    nothing back from memory that the same loop wrote: the first
+//    version's in-place shared-memory rows made every cell's loads wait
+//    on the stores before them. The one value left of a chunk comes from
+//    lane - 1 by __shfl_up_sync before the row is updated.
+//  - B's codes for the lane's columns (b[j - 1]) sit in CH / 4 registers
+//    as packed byte offsets 4 c (so C <= 63); column 0 and the columns
+//    past LB carry code C, a zero column appended to em [C, C + 1] in
+//    shared memory, so M is 0 there without a test. The em lookup is one
+//    byte extract and one shared-memory load whose address no earlier
+//    load produces; A's code of the next row is loaded while the current
+//    row runs.
+//  - Y composes each chunk's affine maps, a warp scan gives the value
+//    entering each chunk and a second pass applies them, as in the
+//    first version; columns past LB hold no M or X and their Y is kept
+//    out of the row max (one compare a cell).
+//  - The rows' maxima wait one in each lane, and the lanes take the f64
+//    logs of 32 rows at once: a log a row put a ~300-cycle serial f64
+//    chain on every row's path. The f64 sum's order differs from the
+//    first version's, far below f32's resolution.
+//  - Occupancy is set by registers alone (em is C (C + 1) floats), and
+//    registers by the 3 CH row values: 183 at CH 44 (11 warps a SM), 202
+//    at CH 48 (9), none spilled (-Xptxas -v; tools/pairhmm_bench.py
+//    --ptxas and chip_smoke.py 5c print each instance). Kept opaque once
+//    a row, the codes and t_mg stop the compiler holding CH unpacked
+//    offsets and CH products t_mg m across the row loop (253 registers
+//    and 8 warps a SM at CH 44 before).
+//  - What bounds it: instruction issue, ~22 a cell (the 17 operations,
+//    the em lookup, the Y mask and the chunk maps). On an H100 it runs
+//    ~1.2e12 cells a second at 24,000 pairs (9e9 a SM), 3.4x its
+//    operations bound (PERF.md).
+//
+// pairhmm_kernel (wider rows, the first version): PH_WARPS warps per
+// CTA, one per pair; the columns j = 0..LB are cut into 32 contiguous
+// chunks, one per lane. It stays for B rows wider than the largest CH,
+// as the wide layouts of the OA and flank kernels stay: no data of the
+// repo reaches it, and a register chunk above 48 columns a lane would
+// drop below 9 warps a SM or spill (255 registers at most).
 //  - the previous row's M, X and Y live in shared memory (a device buffer
 //    of three rows per pair where they do not fit) and are updated in
 //    place: a lane reads the one value left of its chunk into registers
@@ -28,12 +67,12 @@
 //    along the row: each lane composes the affine maps of its chunk, a
 //    __shfl_up_sync scan gives the value entering each chunk, and a
 //    second pass over the chunk writes Y and takes the row's max;
-//  - the row's rescale (a multiply by the reciprocal of its max; the
-//    plain version divides, which differs by an ulp per value) is
-//    applied when the next row reads it; the log scales sum in f64. A
-//    division per value took the divide's slow path on the rows'
-//    subnormal tails;
 //  - em [C, C] in shared memory.
+//
+// Both rescale each row by its max, multiplying by the reciprocal when
+// the next row reads the value (the plain version divides, which differs
+// by an ulp per value; a division per value took the divide's slow path
+// on the rows' subnormal tails), and sum the log scales in f64.
 #include "common.cuh"
 
 #define PH_WARPS 4
@@ -162,4 +201,215 @@ extern "C" int witch_pairhmm(const int32_t *codesA, const int32_t *lensA,
         codesA, lensA, codesB, lensB, em, out, rows_g, codes_smem, P, LAs,
         LBs, C, t_mm, t_mg, t_gm, t_gg);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// The register kernel: one warp per pair and per CTA, CH columns a lane.
+
+// Value left of the lane's chunk in the previous row, rescaled (0 for
+// lane 0, whose chunk starts at column 0).
+static __device__ __forceinline__ float left_of(float v, float inv,
+                                                int lane) {
+    const float u = __shfl_up_sync(FULL_MASK, v, 1) * inv;
+    return lane == 0 ? 0.f : u;
+}
+
+// v, as a value the compiler cannot see through: taken once a row, it
+// keeps the compiler from holding CH values across the row loop (the
+// codes' byte offsets unpacked, each t_mg m of pass 1 for pass 2), which
+// took up to 253 registers a lane and 8 warps a SM at CH 44.
+static __device__ __forceinline__ uint32_t opaque(uint32_t v) {
+    asm volatile("" : "+r"(v));
+    return v;
+}
+static __device__ __forceinline__ float opaque(float v) {
+    asm volatile("" : "+f"(v));
+    return v;
+}
+
+template <int CH>
+__global__ void __launch_bounds__(32)
+pairhmm_reg_kernel(const int32_t *__restrict__ codesA,
+                   const int32_t *__restrict__ lensA,
+                   const uint8_t *__restrict__ codesB,
+                   const int32_t *__restrict__ lensB,
+                   const float *__restrict__ em, float *__restrict__ out,
+                   int LAs, int LBs, int C, float t_mm, float t_mg,
+                   float t_gm, float t_gg) {
+    static_assert(CH % 4 == 0, "codes are packed four to a register");
+    extern __shared__ float em_s[];       // [C, C + 1]; column C is 0
+    const int lane = threadIdx.x, W = C + 1;
+    for (int t = lane; t < C * W; t += 32) {
+        const int r = t / W, c = t - r * W;
+        em_s[t] = c < C ? em[r * C + c] : 0.f;
+    }
+    __syncthreads();
+    const int p = blockIdx.x;
+    const int LA = lensA[p], LB = lensB[p];
+    const int32_t *a = codesA + (size_t)p * LAs;
+    const uint8_t *b = codesB + (size_t)p * LBs;
+    const int jb = lane * CH;             // the lane's first column
+    const int lim = LB + 1 - jb;          // its columns k < lim are in B
+
+    // byte offset in an em row of column j's B code b[j - 1] (4 C <= 252);
+    // code C, em's zero column, at j = 0 and past LB
+    uint32_t cw[CH / 4];
+#pragma unroll
+    for (int q = 0; q < CH / 4; ++q) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int j = jb + 4 * q + r;
+            const uint32_t c = (j >= 1 && j <= LB) ? (uint32_t)b[j - 1]
+                                                   : (uint32_t)C;
+            w |= (4 * c) << (8 * r);
+        }
+        cw[q] = w;
+    }
+
+    // row 0: M[0, 0] = 1, X = 0, Y[0, j] = t_mg t_gg^(j-1)
+    float M[CH], X[CH], Y[CH];
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+        const int j = jb + k;
+        M[k] = j == 0 ? 1.f : 0.f;
+        X[k] = 0.f;
+        Y[k] = (j >= 1 && j <= LB) ? t_mg * powf(t_gg, (float)(j - 1))
+                                   : 0.f;
+    }
+    float inv = 1.f;                      // 1 / the stored row's max
+    // the rows' log scales: row i's max waits in lane i % 32 and the
+    // lanes take the logs of 32 rows at once, in f64 (a log a row on
+    // the row's path cost ~300 cycles of a serial f64 chain)
+    float held = 1.f;
+    double logs = 0.0;
+    int ai = LA > 0 ? a[0] : 0;
+
+    for (int i = 0; i < LA; ++i) {
+        const int an = i + 1 < LA ? a[i + 1] : 0;
+        const char *erow = (const char *)(em_s + ai * W);
+        const float tmg = opaque(t_mg);
+#pragma unroll
+        for (int q = 0; q < CH / 4; ++q) cw[q] = opaque(cw[q]);
+        // previous row, column j - 1
+        float pM = left_of(M[CH - 1], inv, lane);
+        float pX = left_of(X[CH - 1], inv, lane);
+        float pY = left_of(Y[CH - 1], inv, lane);
+        // pass 1: M and X, their maxima; the chunk's map y_{jb} ->
+        // y_{jb + CH}
+        Aff f{1.f, 0.f};
+        float mxM = 0.f, mxX = 0.f;
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+            const float oM = M[k] * inv, oX = X[k] * inv, oY = Y[k] * inv;
+            const float e = *(const float *)(
+                erow + __byte_perm(cw[k >> 2], 0, 0x4440 + (k & 3)));
+            const float m = e * (t_mm * pM + t_gm * pX + t_gm * pY);
+            const float x = t_mg * oM + t_gg * oX;
+            M[k] = m;
+            X[k] = x;
+            mxM = fmaxf(mxM, m);
+            mxX = fmaxf(mxX, x);
+            pM = oM;
+            pX = oX;
+            pY = oY;
+            f = aff_then(f, Aff{t_gg, t_mg * m});
+        }
+        // the value of Y entering each chunk (Y[i, 0] = 0)
+        Aff x = f;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+            const float qa = __shfl_up_sync(FULL_MASK, x.a, s);
+            const float qb = __shfl_up_sync(FULL_MASK, x.b, s);
+            if (lane >= s) x = aff_then(Aff{qa, qb}, x);
+        }
+        float y = __shfl_up_sync(FULL_MASK, x.b, 1);
+        if (lane == 0) y = 0.f;
+        // pass 2: Y and its max over the columns in B (M and X are 0
+        // past LB)
+        float mxY = 0.f;
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+            Y[k] = y;
+            if (k < lim) mxY = fmaxf(mxY, y);
+            y = t_gg * y + tmg * M[k];
+        }
+        float rmax = fmaxf(mxM, fmaxf(mxX, mxY));
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+            rmax = fmaxf(rmax, __shfl_xor_sync(FULL_MASK, rmax, s));
+        const float mx = rmax <= 0.f ? 1.f : rmax;
+        inv = __frcp_rn(mx);
+        if (lane == (i & 31)) held = mx;
+        if ((i & 31) == 31 || i == LA - 1) {
+            logs += log((double)held);
+            held = 1.f;
+        }
+        ai = an;
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+        logs += __shfl_xor_sync(FULL_MASK, logs, s);
+    const int kk = LB - jb;
+    if (kk >= 0 && kk < CH) {
+        float vM = 0.f, vX = 0.f, vY = 0.f;
+#pragma unroll
+        for (int k = 0; k < CH; ++k)
+            if (k == kk) {
+                vM = M[k];
+                vX = X[k];
+                vY = Y[k];
+            }
+        const float tot = vM * inv + vX * inv + vY * inv;
+        out[p] = (float)((double)logf(fmaxf(tot, 1e-30f)) + logs);
+    }
+}
+
+template <int CH>
+static int launch_reg(const int32_t *codesA, const int32_t *lensA,
+                      const uint8_t *codesB, const int32_t *lensB,
+                      const float *em, float *out, int P, int LAs, int LBs,
+                      int C, float t_mm, float t_mg, float t_gm, float t_gg,
+                      cudaStream_t stream) {
+    const size_t smem = (size_t)C * (C + 1) * sizeof(float);
+    cudaError_t err = set_smem((const void *)pairhmm_reg_kernel<CH>, smem);
+    if (err != cudaSuccess) return (int)err;
+    pairhmm_reg_kernel<CH><<<(unsigned)P, 32, smem, stream>>>(
+        codesA, lensA, codesB, lensB, em, out, LAs, LBs, C, t_mm, t_mg, t_gm,
+        t_gg);
+    return (int)cudaGetLastError();
+}
+
+// The register kernel at CH columns a lane (8, 12, ..., 48: ops/
+// pairhmm.py:PH_CH); C <= 63 (B's codes are held as byte offsets 4 c,
+// and code C marks the columns without a B residue).
+extern "C" int witch_pairhmm_reg(const int32_t *codesA, const int32_t *lensA,
+                                 const uint8_t *codesB, const int32_t *lensB,
+                                 const float *em, float *out, int CH, int P,
+                                 int LAs, int LBs, int C, float t_mm,
+                                 float t_mg, float t_gm, float t_gg,
+                                 void *stream) {
+    if (C < 1 || C > 63 || (LBs + 1 > 32 * CH && P > 0))
+        return (int)cudaErrorInvalidValue;
+    if (P <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+#define PH_REG(N)                                                             \
+    case N:                                                                   \
+        return launch_reg<N>(codesA, lensA, codesB, lensB, em, out, P, LAs,   \
+                             LBs, C, t_mm, t_mg, t_gm, t_gg, st);
+    switch (CH) {
+        PH_REG(8)
+        PH_REG(12)
+        PH_REG(16)
+        PH_REG(20)
+        PH_REG(24)
+        PH_REG(28)
+        PH_REG(32)
+        PH_REG(36)
+        PH_REG(40)
+        PH_REG(44)
+        PH_REG(48)
+    }
+#undef PH_REG
+    return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 """Batched pair-HMM forward log-odds for the anchor embedding of the
-consistency backbone aligner: the kernel (csrc/pairhmm.cu), its plain
-PyTorch version, and a float64 numpy reference.
+consistency backbone aligner: the kernels (csrc/pairhmm.cu, picked by
+B's width), their plain PyTorch version, and a float64 numpy reference.
 
 Counterpart of witch_tpu/ops/pairhmm_forward.py (pairhmm_forward_logodds,
 XLA, and pairhmm_forward_logodds_np). Per (A, B) pair, the forward pass
@@ -29,7 +29,9 @@ import torch
 
 from .. import _build
 
-PH_WARPS = 4                 # pairs (warps) per CTA, csrc/pairhmm.cu
+PH_WARPS = 4                 # pairs (warps) per CTA of the first version
+PH_CH = tuple(range(8, 49, 4))   # columns a lane, the register instances
+PH_REG_C_MAX = 63            # the register kernel's codes are bytes 4 c
 TINY = 1e-30                 # floor of the final total (the JAX version's)
 
 
@@ -40,11 +42,27 @@ def transitions(delta: float, eps: float):
 
 
 def pairhmm_layout(C: int, LB: int):
-    """(rows in shared memory, B's codes in shared memory) for a launch
-    whose B rows are LB wide: em [C, C] f32 always, then each of the
-    PH_WARPS warps' three f32 rows of LB + 1 and its LB code bytes where
-    they fit in _build.SMEM_ROWS_MAX; the rows go to a device buffer
-    first, then the codes are read from device memory."""
+    """(layout, CH, rows in shared memory, B's codes in shared memory) for
+    a launch whose B rows are LB wide.
+
+    Layout 0, the register kernel (csrc/pairhmm.cu:pairhmm_reg_kernel):
+    the smallest CH of PH_CH with 32 CH >= LB + 1 columns; rows and codes
+    in registers as byte offsets 4 c into em [C, C + 1] in shared memory
+    (code C, a zero column, marks B's empty columns), so C <= 63. Layout 1,
+    the first version (pairhmm_kernel), for wider rows: CH 0, and where
+    its rows and codes go (first_version_smem)."""
+    ch = next((c for c in PH_CH if 32 * c >= LB + 1), 0)
+    if ch and C <= PH_REG_C_MAX:
+        return 0, ch, False, False
+    return (1, 0) + first_version_smem(C, LB)
+
+
+def first_version_smem(C: int, LB: int):
+    """(rows in shared memory, B's codes in shared memory) of the first
+    version at width LB: em [C, C] f32 always, then each of the PH_WARPS
+    warps' three f32 rows of LB + 1 and its LB code bytes where they fit
+    in _build.SMEM_ROWS_MAX; the rows go to a device buffer first, then
+    the codes are read from device memory."""
     em, rows, codes = 4 * C * C, PH_WARPS * 12 * (LB + 1), PH_WARPS * LB
     if em + rows + codes <= _build.SMEM_ROWS_MAX:
         return True, True
@@ -134,12 +152,15 @@ def pairhmm_forward_logodds_plain(codesA, lensA, codesB, lensB, em,
 
 
 def pairhmm_forward_logodds(codesA, lensA, codesB, lensB, em,
-                            delta: float, eps: float) -> torch.Tensor:
+                            delta: float, eps: float,
+                            first_version: bool = False) -> torch.Tensor:
     """[P] f32 forward log-odds of each (A, B) pair: codesA [P, LA] and
     codesB [P, LB] padded residue codes, lensA / lensB [P] their lengths,
-    em [C, C] emission odds. CUDA tensors launch the kernel (its CUDA-event
-    ms added to _build.KERNEL_MS["pairhmm"]); CPU tensors take the plain
-    version."""
+    em [C, C] emission odds. CUDA tensors launch the kernel that
+    pairhmm_layout picks by LB (first_version=True takes the first
+    version at any width, to time it against the register kernel), its
+    CUDA-event ms added to _build.KERNEL_MS["pairhmm"]; CPU tensors take
+    the plain version."""
     dev = _check(codesA, lensA, codesB, lensB)
     if dev.type == "cpu":
         return pairhmm_forward_logodds_plain(codesA, lensA, codesB, lensB,
@@ -160,18 +181,27 @@ def pairhmm_forward_logodds(codesA, lensA, codesB, lensB, em,
     out = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return out
-    rows_smem, codes_smem = pairhmm_layout(C, LB)
-    rows = None if rows_smem else torch.empty(
+    lay, ch, rows_smem, codes_smem = pairhmm_layout(C, LB)
+    if first_version and lay == 0:
+        lay, ch = 1, 0
+        rows_smem, codes_smem = first_version_smem(C, LB)
+    rows = None if lay == 0 or rows_smem else torch.empty(
         P * 3 * (LB + 1), dtype=torch.float32, device=dev)
     t = [ctypes.c_float(v) for v in transitions(delta, eps)]
     lib = _build.lib()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    rc = lib.witch_pairhmm(
-        cA.data_ptr(), lA.data_ptr(), cB.data_ptr(), lB.data_ptr(),
-        em.data_ptr(), out.data_ptr(),
-        rows.data_ptr() if rows is not None else None, int(codes_smem),
-        P, LA, LB, C, *t, _build.stream_ptr(dev))
+    if lay == 0:
+        rc = lib.witch_pairhmm_reg(
+            cA.data_ptr(), lA.data_ptr(), cB.data_ptr(), lB.data_ptr(),
+            em.data_ptr(), out.data_ptr(), ch, P, LA, LB, C, *t,
+            _build.stream_ptr(dev))
+    else:
+        rc = lib.witch_pairhmm(
+            cA.data_ptr(), lA.data_ptr(), cB.data_ptr(), lB.data_ptr(),
+            em.data_ptr(), out.data_ptr(),
+            rows.data_ptr() if rows is not None else None, int(codes_smem),
+            P, LA, LB, C, *t, _build.stream_ptr(dev))
     _build.check(rc, "pairhmm")
     ev[1].record()
     ev[1].synchronize()

@@ -1,28 +1,40 @@
-"""Time the pair-HMM forward kernel on the anchor embedding of scenario
-A's backbone, on one CUDA card.
+"""Time the pair-HMM forward kernels on an anchor embedding, for one or
+more checkouts of the repository, on one CUDA card.
 
-    python3 witch_tpu_torch/tools/pairhmm_bench.py [--reps N] [--plain]
-        [--backbone N]
+    python3 witch_tpu_torch/tools/pairhmm_bench.py [--tree DIR ...]
+        [--reps N] [--plain] [--first] [--ptxas]
+        [--n 300 --queries 100 --seed 20261016 --backbone 100]
 
-The input is chip_smoke.py's scenario A: scripts/make_scale_dataset.py
---n 300 --queries 100 --seed 20261016, its backbone rows ungapped and its
-fragments, from which backbone.py:select_backbone picks --backbone
-sequences (100) as the backbone job does. anchor_embedding(use_device=
-True) of those sequences (24 farthest-point anchors, every sequence-
-anchor pair) runs through the kernel once to record its calls
-(record_calls); each call is then timed with CUDA events (time_calls:
-mean of --reps after a warm-up) and, with --plain, through the plain
-version once after a warm-up. Prints one JSON line: launches, pairs,
-cells, bytes, kernel ms, plain ms, the bound (17 f32 operations a cell
-at 67 TFLOP/s, or the inputs read once at 3.35 TB/s, whichever is
-longer), the largest |d log-odds| between kernel and plain and max |dE|
-of the two embeddings, and the card's name and power limit. chip_smoke.py
-phase 5c measures with record_calls and time_calls.
+The input is scripts/make_scale_dataset.py --n N --queries Q --seed S,
+its backbone rows ungapped and its fragments, from which backbone.py:
+select_backbone picks --backbone sequences as the backbone job does. The
+defaults are chip_smoke.py's scenario A (100 sequences, 2,400 sequence-
+anchor pairs); --n 1000 --queries 1000 --seed 20260820 --backbone 1000 is
+dna1k's data at the default 1,000-sequence backbone (24,000 pairs).
+
+Each tree runs in its own process (the trees' packages share a name), in
+turns A B B A for two trees, so parent and change are measured in one
+call on one card. In each, anchor_embedding(use_device=True) of those
+sequences (24 farthest-point anchors, every sequence-anchor pair) runs
+through the tree's kernel once to record its calls (record_calls); each
+call is then timed with CUDA events (time_calls: mean of --reps after a
+warm-up); with --first also through the first version
+(first_version=True, where the tree's wrapper has it) and with --plain through the plain version
+(one call, no warm-up). Per tree and turn it prints one JSON line:
+launches, pairs, cells, bytes, kernel ms, the layout at each width, the
+first version's and plain's ms and their largest |d log-odds| from the
+kernel, the bound (17 f32 operations a cell at 67 TFLOP/s, or the inputs
+read once at 3.35 TB/s, whichever is longer), max |dE| against the first
+tree's embedding, and the card's name and power limit. --ptxas first
+prints each kernel instance's registers and spills from nvcc -Xptxas -v
+on each tree's csrc/pairhmm.cu (ptxas), and the warps a SM they allow.
+chip_smoke.py phase 5c measures with record_calls, time_calls and ptxas.
 """
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -32,6 +44,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 OPS_PER_CELL = 17           # the recurrence's f32 operations a cell
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+SCEN_A = dict(n=300, queries=100, seed=20261016, backbone=100)
 
 
 def smi():
@@ -41,20 +54,31 @@ def smi():
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
 
 
-def backbone_codes(n_backbone):
-    """The encoded backbone sequences of scenario A's backbone job."""
+def backbone_codes(n_backbone, n=300, queries=100, seed=20261016,
+                   data=None):
+    """The encoded backbone sequences the backbone job picks from
+    make_scale_dataset.py's rows (ungapped) and fragments, and the DNA
+    alphabet. `data`: a directory the script already wrote with these
+    arguments (else it runs into a temporary one)."""
     from witch_tpu_torch.backbone import select_backbone
     from witch_tpu_torch.core.alphabet import ALPHABETS
     from witch_tpu_torch.io.fasta import read_fasta
-    with tempfile.TemporaryDirectory() as d:
-        subprocess.run([sys.executable, os.path.join(
-            ROOT, "scripts", "make_scale_dataset.py"), "--n", "300",
-            "--queries", "100", "--seed", "20261016", "--out", d],
-            check=True, capture_output=True, timeout=300)
-        recs = [(n, s.replace("-", "").upper()) for n, s in read_fasta(
+
+    def read(d):
+        recs = [(nm, s.replace("-", "").upper()) for nm, s in read_fasta(
             os.path.join(d, "backbone.aln.fasta.gz"))]
-        recs += [(n, s.upper()) for n, s in read_fasta(
+        return recs + [(nm, s.upper()) for nm, s in read_fasta(
             os.path.join(d, "queries.fasta"))]
+
+    if data is None:
+        with tempfile.TemporaryDirectory() as d:
+            subprocess.run([sys.executable, os.path.join(
+                ROOT, "scripts", "make_scale_dataset.py"), "--n", str(n),
+                "--queries", str(queries), "--seed", str(seed), "--out", d],
+                check=True, capture_output=True, timeout=300)
+            recs = read(d)
+    else:
+        recs = read(data)
     backbone, _ = select_backbone(recs, n_backbone, seed=0)
     al = ALPHABETS["dna"]
     return [al.encode(s) for _, s in backbone], al
@@ -82,42 +106,75 @@ def record_calls(codes, al, device, kernel=True):
     return E, calls
 
 
-def _cuda_ms(fn, args, reps):
-    """(the output of a warm-up call, CUDA-event ms of one call, mean of
-    reps)."""
+def _cuda_ms(fn, args, reps, warm=True, **kw):
+    """(the output of the first call, CUDA-event ms of one call: the mean
+    of reps after a warm-up call, or with warm=False the first call
+    alone)."""
     import torch
-    out = fn(*args)
-    torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if warm:
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
     ev[0].record()
-    for _ in range(reps):
-        fn(*args)
+    for r in range(reps):
+        o = fn(*args, **kw)
+        if r == 0 and not warm:
+            out = o
     ev[1].record()
     torch.cuda.synchronize()
     return out, ev[0].elapsed_time(ev[1]) / reps
 
 
-def time_calls(calls, reps=3, plain=True):
+def time_calls(calls, reps=3, plain=True, first=False, plain_warm=True):
     """Summed over the recorded calls: the kernel's ms (mean of reps), the
     DP cells (len A x (len B + 1)), the bytes of the inputs read once and
-    the output written once, and the bound; with plain, the plain version's ms (one call) and the
-    largest |d log-odds| between the two."""
+    the output written once, the bound, and the layout at each width
+    (ops/pairhmm.py:pairhmm_layout, where the tree has it); with plain,
+    the plain version's ms (one call, after a warm-up call unless
+    plain_warm is False) and the largest |d log-odds| between the two,
+    also divided by min(len A, len B) as the embedding divides it;
+    with first, the same for the first version (first_version=True, where
+    the tree's wrapper has it)."""
+    import inspect
+
+    import torch
+
     import witch_tpu_torch.ops.pairhmm as ph
-    res = dict(launches=len(calls), ms=0.0, cells=0.0, bytes=0.0)
+    kern = ph.pairhmm_forward_logodds
+    has_first = "first_version" in inspect.signature(kern).parameters
+    res = dict(launches=len(calls), ms=0.0, cells=0.0, bytes=0.0,
+               layouts={})
     if plain:
-        res.update(plain_ms=0.0, max_abs_err_logodds=0.0)
+        res.update(plain_ms=0.0, max_abs_err_logodds=0.0,
+                   max_abs_err_per_residue=0.0)
+    if first and has_first:
+        res.update(ms_first_version=0.0, max_abs_diff_first_version=0.0)
     for args in calls:
-        lA, lB = args[1], args[3]
+        lA, lB, em = args[1], args[3], args[4]
         res["cells"] += float((lA.double() * (lB.double() + 1)).sum())
         res["bytes"] += float(sum(t.numel() * t.element_size()
                                   for t in args[:5]) + 4 * len(lA))
-        k, t = _cuda_ms(ph.pairhmm_forward_logodds, args, reps)
+        if hasattr(ph, "pairhmm_layout"):
+            res["layouts"][str(args[2].shape[1])] = list(ph.pairhmm_layout(
+                em.shape[0], args[2].shape[1]))
+        k, t = _cuda_ms(kern, args, reps)
         res["ms"] += t
+        if first and has_first:
+            f, t = _cuda_ms(kern, args, reps, first_version=True)
+            res["ms_first_version"] += t
+            res["max_abs_diff_first_version"] = max(
+                res["max_abs_diff_first_version"],
+                float((k - f).abs().max()))
         if plain:
-            p, t = _cuda_ms(ph.pairhmm_forward_logodds_plain, args, 1)
+            p, t = _cuda_ms(ph.pairhmm_forward_logodds_plain, args, 1,
+                            warm=plain_warm)
             res["plain_ms"] += t
+            d = (k - p).abs().double()
             res["max_abs_err_logodds"] = max(res["max_abs_err_logodds"],
-                                             float((k - p).abs().max()))
+                                             float(d.max()))
+            res["max_abs_err_per_residue"] = max(
+                res["max_abs_err_per_residue"], float(
+                    (d / torch.minimum(lA, lB).clamp(min=1)).max()))
     t_ops = OPS_PER_CELL * res["cells"] / F32_OPS_PER_S * 1e3
     t_bytes = res["bytes"] / HBM_BYTES_PER_S * 1e3
     res.update(bound_ms=max(t_ops, t_bytes),
@@ -125,23 +182,130 @@ def time_calls(calls, reps=3, plain=True):
     return res
 
 
+def warps_per_sm(regs, warps_per_cta=1):
+    """Resident warps a SM at `regs` registers a thread on sm_90 (65,536
+    registers, allocated per warp in units of 256; at most 64 warps and
+    32 CTAs a SM)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    ctas = min(32, 65536 // (per_warp * warps_per_cta))
+    return min(64, ctas * warps_per_cta)
+
+
+def ptxas(tree=ROOT):
+    """[{kernel, registers, spill_stores, spill_loads, stack, warps_per_sm}]
+    of each kernel in the tree's csrc/pairhmm.cu, from nvcc -Xptxas -v
+    (its build flags, sm_90a). Raises with nvcc's output if it fails."""
+    sys.path.insert(0, tree)
+    try:
+        from witch_tpu_torch import _build
+        nvcc, flags = _build._nvcc(), list(_build.NVCC_FLAGS)
+    finally:
+        sys.path.remove(tree)
+    src = os.path.join(tree, "witch_tpu_torch", "csrc", "pairhmm.cu")
+    with tempfile.TemporaryDirectory() as d:
+        r = subprocess.run([nvcc] + flags + ["-Xptxas", "-v", "-c", "-o",
+                                             os.path.join(d, "p.o"), src],
+                           capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError("nvcc -Xptxas -v failed:\n" + r.stderr[-4000:])
+    return parse_ptxas(r.stdout + r.stderr)
+
+
+def parse_ptxas(text):
+    """The per-kernel records of ptxas() from nvcc -Xptxas -v's output:
+    the register kernel's instances as pairhmm_reg_kernel<CH> (one warp
+    a CTA), the first version as pairhmm_kernel (4 warps a CTA)."""
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.search(r"ILi(\d+)EE", name)
+            base = re.search(r"\d+(pairhmm\w*?kernel)", name)
+            cur = dict(kernel=(base.group(1) if base else name)
+                       + ("<%s>" % t.group(1) if t else ""))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            reg = cur["kernel"].startswith("pairhmm_reg")
+            cur["warps_per_sm"] = warps_per_sm(
+                cur["registers"], warps_per_cta=1 if reg else 4)
+    return out
+
+
+CHILD = r"""
+import importlib.util, json, sys
+import numpy as np
+tree, tool, npz, reps, plain, first, out = sys.argv[1:8]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("witch_pairhmm_bench", tool)
+bench = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(bench)
+from witch_tpu_torch.core.alphabet import ALPHABETS
+z = np.load(npz)
+off = z["off"]
+codes = [np.ascontiguousarray(z["flat"][off[i]:off[i + 1]], np.int32)
+         for i in range(len(off) - 1)]
+E, calls = bench.record_calls(codes, ALPHABETS["dna"], "cuda")
+np.save(out, E)
+res = dict(tree=tree, pairs=int(E.size))
+res.update(bench.time_calls(calls, int(reps), plain == "1", first == "1",
+                            plain_warm=False))
+print(json.dumps(res))
+"""
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--plain", action="store_true")
-    ap.add_argument("--backbone", type=int, default=100)
+    ap.add_argument("--first", action="store_true")
+    ap.add_argument("--ptxas", action="store_true")
+    for k, v in SCEN_A.items():
+        ap.add_argument("--" + k, type=int, default=v)
     a = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    codes, al = backbone_codes(a.backbone)
-    E_k, calls = record_calls(codes, al, "cuda")
-    res = dict(pairs=int(E_k.size), card=smi())
-    res.update(time_calls(calls, a.reps, a.plain))
-    if a.plain:
-        E_p, _ = record_calls(codes, al, "cuda", kernel=False)
-        res["max_abs_dE"] = float(np.abs(E_k - E_p).max())
-    print(json.dumps(res), flush=True)
+    trees = [os.path.abspath(t) for t in (a.tree or [ROOT])]
+    card = smi()
+    if a.ptxas:
+        for t in trees:
+            print(json.dumps(dict(tree=t, ptxas=ptxas(t), card=card)),
+                  flush=True)
+    codes, _ = backbone_codes(a.backbone, a.n, a.queries, a.seed)
+    turns = trees if len(trees) == 1 else \
+        [trees[0], trees[1], trees[1], trees[0]]
+    E0 = None
+    with tempfile.TemporaryDirectory() as d:
+        npz = os.path.join(d, "codes.npz")
+        np.savez(npz, flat=np.concatenate(codes),
+                 off=np.cumsum([0] + [len(c) for c in codes]))
+        for i, t in enumerate(turns):
+            out = os.path.join(d, "E%d.npy" % i)
+            r = subprocess.run(
+                [sys.executable, "-c", CHILD, t, os.path.abspath(__file__),
+                 npz, str(a.reps), str(int(a.plain)), str(int(a.first)),
+                 out], capture_output=True, text=True, timeout=3000)
+            if r.returncode != 0:
+                sys.stderr.write(r.stderr[-4000:])
+                return r.returncode
+            res = json.loads(r.stdout.strip().splitlines()[-1])
+            E = np.load(out)
+            E0 = E if E0 is None else E0
+            res.update(max_abs_dE_vs_first_tree=float(np.abs(E - E0).max()),
+                       card=card)
+            print(json.dumps(res), flush=True)
     return 0
 
 
