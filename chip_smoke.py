@@ -74,7 +74,15 @@ Phases:
      same data (-e left out): the device distance counts equal numpy
      float64, every query placed or ignored, backbone rows intact, the
      query rows against the JAX package's (ref_dna1k_c.*, at least
-     DNA1K_C_JAX);
+     DNA1K_C_JAX); (4s) query sharding: dna1k (4's data) through
+     witch_tpu_torch/tools/run_distributed.py as two gloo ranks at once on
+     the one card, into one outdir: exactly one rank merged, the merged
+     aligned.masked.fasta byte-identical to 4's, the query rows against
+     the JAX package's (at least DNA1K_JAX_MIN), forward, null2 and oa
+     launched by each rank, each rank's wall and gather time beside 4's
+     wall; then amino500 as WITCH_TPU_SHARD 0/2 and 1/2 started at the
+     same moment into one outdir (the file-staged gather): exactly one
+     merged, 600/600 rows equal the oracle and phase 3's bytes;
      (4g) the reference WITCH's DNA example against its oracle (all
      1,000 masked rows), where tests/test_golden.py finds its data, or a
      line saying the data is absent;
@@ -1006,6 +1014,7 @@ def phase_dna(tmp, rec):
         "-d", outdir, "-o", "aligned.fasta"])
     lines = print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
+    WALL["dna1k"] = dt
     from witch_tpu_torch.io.fasta import read_fasta
     qnames = [n for n, _ in read_fasta(os.path.join(data,
                                                     "queries.fasta"))]
@@ -1709,6 +1718,135 @@ def phase_scenario_c(tmp, rec):
           "scenario C: forward, null2 and oa launched %s" % launches)
     return launches
 
+# one query shard of amino500 through the pipeline on the card, its shard
+# from WITCH_TPU_SHARD: prints whether it merged, its wall and launches
+SHARD_RUN = r"""
+import json, sys, time
+sys.modules["jax"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+from witch_tpu_torch import _build
+from witch_tpu_torch.cli import init_parser
+from witch_tpu_torch.config import Configs, build_configs
+from witch_tpu_torch.pipeline import main_alignment_process
+build_configs(init_parser(), sys.argv[2:])
+torch.set_num_threads(Configs.num_cpus)     # its share of the cores (-t)
+t0 = time.time()
+out = main_alignment_process()
+print(json.dumps({"merged": out is not None, "wall_s": time.time() - t0,
+                  "launches": _build.LAUNCHES}))
+"""
+
+
+def phase_sharded(tmp):
+    """Query sharding on the card: (a) dna1k (phase 4's data) as two gloo
+    ranks at once on the one card through tools/run_distributed.py, into
+    one outdir; (b) amino500 as WITCH_TPU_SHARD 0/2 and 1/2 started at the
+    same moment into one outdir (the file-staged gather). Returns the
+    launches of every rank of both."""
+    from witch_tpu_torch.io.fasta import read_fasta
+
+    t_phase = time.time()
+    say("== phase 4s(a): dna1k as two gloo ranks at once on the one card "
+        "(witch_tpu_torch/tools/run_distributed.py)")
+    data = os.path.join(tmp, "dna1k")
+    ref = os.path.join(tmp, "dna1k_out", "aligned.masked.fasta")
+    outdir = os.path.join(tmp, "dna1k_sharded")
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "witch_tpu_torch", "tools",
+                                      "run_distributed.py"),
+         "-n", "2", "--device", "cuda", "--timeout", "400", "--compare", ref,
+         "--", "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+         "-e", os.path.join(data, "backbone.tre"),
+         "-q", os.path.join(data, "queries.fasta"),
+         "-d", outdir, "-o", "aligned.fasta"], cwd=ROOT,
+        capture_output=True, text=True, timeout=500)
+    if r.returncode != 0:
+        say(r.stdout[-3000:] + r.stderr[-6000:])
+    check(r.returncode == 0, "dna1k sharded: the tool ran both ranks (rc %d)"
+          % r.returncode)
+    lines = [json.loads(x) for x in r.stdout.splitlines()
+             if x.startswith("{")]
+    ranks, summary = lines[:-1], lines[-1]
+    total = {k: 0 for k in ranks[0]["launches"]}
+    for x in ranks:
+        say("  rank %d: wall %.2f s (phase 4, one process: %.2f s), gather "
+            "%.3f s, merged %s, launches %s"
+            % (x["rank"], x["wall_s"], WALL["dna1k"], x["gather_s"],
+               x["merged"], x["launches"]))
+        for ln in x["breakdown"]:
+            say("    " + ln)
+        for k, v in x["launches"].items():
+            total[k] += v
+    say("  tool wall (start of both ranks to the end of both) %.2f s"
+        % summary["wall_s"])
+    check(summary["merged_ranks"] == [0] and len(ranks) == 2,
+          "dna1k sharded: exactly one rank merged (rank %s)"
+          % summary["merged_ranks"])
+    check(summary["identical"] is True, "dna1k sharded: merged "
+          "aligned.masked.fasta byte-identical to phase 4's")
+    check(all(x["launches"][k] > 0 for x in ranks
+              for k in ("forward", "null2", "oa")),
+          "dna1k sharded: forward, null2 and oa launched by each rank")
+    masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
+    rows_vs_jax("dna1k sharded", masked,
+                ("ref_dna1k.queries.masked.fasta.gz", DNA1K_JAX_MIN),
+                [n for n, _ in read_fasta(os.path.join(data,
+                                                       "queries.fasta"))])
+    WALL["dna1k sharded"] = max(x["wall_s"] for x in ranks)
+
+    say("== phase 4s(b): amino500 as WITCH_TPU_SHARD 0/2 and 1/2 started "
+        "at once into one outdir (file-staged gather)")
+    pre, n_rows = AMINO
+    outdir = os.path.join(tmp, "amino500_sharded")
+    env = dict(os.environ, WITCH_TPU_NO_DAEMON="1")
+    env.pop("WITCH_TPU_SPEC_OA", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RUN, ROOT] + amino_argv(outdir) + [
+            "-t", str(max(1, (os.cpu_count() or 2) // 2))],
+        cwd=ROOT, env=dict(env, WITCH_TPU_SHARD="%d/2" % i),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (o, e) in enumerate(outs):
+        if procs[i].returncode != 0:
+            say("  shard %d/2 failed:\n%s" % (i, e[-4000:]))
+    check(all(p.returncode == 0 for p in procs),
+          "amino500 sharded: both shards ran (rc %s)"
+          % [p.returncode for p in procs])
+    res = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    for i, x in enumerate(res):
+        say("  shard %d/2: wall %.2f s (phase 3, one process: %.2f s), "
+            "merged %s, launches %s" % (i, x["wall_s"], WALL["amino500"],
+                                        x["merged"], x["launches"]))
+        for k, v in x["launches"].items():
+            total[k] += v
+    check(sum(x["merged"] for x in res) == 1,
+          "amino500 sharded: exactly one process merged (shard %s)"
+          % [i for i, x in enumerate(res) if x["merged"]])
+    mine = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
+    with gzip.open(os.path.join(
+            GOLD, pre + ".aligned.masked.fasta.gz"), "rt") as f:
+        gold = dict(read_fasta(f))
+    bad = [n for n in gold if mine.get(n) != gold[n]]
+    check(len(gold) == n_rows and not bad,
+          "amino500 sharded: %d/%d masked rows equal the oracle"
+          % (len(gold) - len(bad), n_rows))
+    same = [open(os.path.join(outdir, f), "rb").read() == open(os.path.join(
+        tmp, "amino500", f), "rb").read()
+        for f in ("aligned.fasta", "aligned.masked.fasta")]
+    check(all(same), "amino500 sharded: aligned.fasta and "
+          "aligned.masked.fasta byte-identical to phase 3's")
+    say("  phase 4s: %.1f s; launches of every rank %s"
+        % (time.time() - t_phase, total))
+    return total
+
 
 def scenario_a_input(tmp):
     """Phase 5's input (made once): 300 ungapped full-length rows and 100
@@ -1948,6 +2086,7 @@ def main():
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
         paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
+        paths["sharded"] = timed(phase_sharded, tmp)
         golden = timed(phase_dna_golden, tmp)
         if golden:
             paths["dna_golden"] = golden

@@ -24,7 +24,8 @@ PORT_MODULES = ("witch_tpu_torch", "witch_tpu_torch.pipeline",
                 "witch_tpu_torch.device", "witch_tpu_torch._build",
                 "witch_tpu_torch.__main__", "witch_tpu_torch.server",
                 "witch_tpu_torch.benchlib", "witch_tpu_torch.ops.pairhmm",
-                "witch_tpu_torch.backbone_consistency")
+                "witch_tpu_torch.backbone_consistency",
+                "witch_tpu_torch.parallel.dist")
 
 
 def _read_fasta_dict(fh):
@@ -93,20 +94,43 @@ def test_cli_without_cuda_raises(tmp_path):
     assert not (tmp_path / "out").exists()      # nothing ran on the CPU
 
 
-def test_unported_modes_raise(tmp_path, monkeypatch):
-    """What is still unported raises, naming its ROADMAP queue: query
-    sharding (WITCH_TPU_SHARD)."""
+def test_sharded_matches_unsharded_and_jax(tmp_path, monkeypatch):
+    """Query sharding (WITCH_TPU_SHARD, file-staged), the data of
+    tests/test_parallel.py:test_pipeline_sharded_end_to_end: shards 0/3
+    and 2/3 stage their rows and return None, 1/3 merges; the merged
+    aligned.fasta and aligned.masked.fasta are the unsharded port's byte
+    for byte and the JAX package's row for row, and the merge removed the
+    staged rows."""
+    from test_torch_parallel import toy_data
+    from witch_tpu.cli import init_parser as jax_parser
+    from witch_tpu.config import build_configs as jax_configs
+    from witch_tpu.io.fasta import read_fasta
+    from witch_tpu.pipeline import main_alignment_process as jax_main
     from witch_tpu_torch.cli import init_parser
     from witch_tpu_torch.config import build_configs
     from witch_tpu_torch.pipeline import main_alignment_process
-    q = os.path.join(GOLD, "ref_amino.queries.fasta")
-    monkeypatch.setenv("WITCH_TPU_SHARD", "0/2")
-    build_configs(init_parser(), [
-        "-q", q, "-d", str(tmp_path / "o"), "-o", "a.fasta",
-        "-b", os.path.join(GOLD, "ref_amino.backbone.fasta"),
-        "-e", os.path.join(GOLD, "ref_amino.backbone.tre")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_alignment_process(device="cpu")
+    args = toy_data(tmp_path) + ["-o", "aligned.fasta"]
+
+    def port(outdir, shard):
+        monkeypatch.setenv("WITCH_TPU_SHARD", shard)
+        build_configs(init_parser(), args + ["-d", str(outdir)])
+        return main_alignment_process(device="cpu")
+
+    monkeypatch.delenv("WITCH_TPU_SHARD", raising=False)
+    jax_configs(jax_parser(), args + ["-d", str(tmp_path / "jax")])
+    jax_main()
+    single = port(tmp_path / "single", "0/1")
+    sh = tmp_path / "sharded"
+    assert port(sh, "0/3") is None
+    assert port(sh, "2/3") is None
+    merged = port(sh, "1/3")
+    assert merged == str(sh / "aligned.fasta")
+    for f in ("aligned.fasta", "aligned.masked.fasta"):
+        assert (sh / f).read_bytes() == (tmp_path / "single" / f).read_bytes()
+        rows_j = dict(read_fasta(str(tmp_path / "jax" / f)))
+        assert len(rows_j) == 29 and dict(read_fasta(str(sh / f))) == rows_j
+    assert single == str(tmp_path / "single" / "aligned.fasta")
+    assert not (sh / "shards").exists()
 
 
 @pytest.fixture

@@ -23,6 +23,7 @@ from .core.alignment import PackedAlignment
 from .core.alphabet import ALPHABETS, Alphabet, infer_datatype
 from .hmm.build import build_hmm, quantize_like_text
 from .io.fasta import read_fasta, write_fasta
+from .parallel.dist import replaced
 from .tree_estimate import estimate_tree
 
 
@@ -331,7 +332,12 @@ class BackboneJob:
                                        cluster_size=10, log=self.log)
         else:
             aln = align_backbone(names, seqs, self.molecule, log=self.log)
-        aln.write(bb_path)
-        write_fasta(queries, q_path)
-        estimate_tree(aln, tree_path, self.device, ml=True, log=self.log)
+        # each file lands whole, the tree last: shards of a sharded run
+        # share this directory and reuse it once the three are there
+        with replaced(bb_path) as tmp:
+            aln.write(tmp)
+        with replaced(q_path) as tmp:
+            write_fasta(queries, tmp)
+        with replaced(tree_path) as tmp:
+            estimate_tree(aln, tmp, self.device, ml=True, log=self.log)
         return bb_path, q_path, tree_path

@@ -208,9 +208,10 @@ def scratch_budget(dev, layout: int, G: int, npl: int, Mpad: int,
     resident (SMs x CTAs per SM x envelopes per CTA), or all of them if
     there are fewer, so that no launch runs below a full card; beyond that
     the fewer launches the fewer tails, so the budget is every envelope's
-    rows, capped at half the memory PyTorch can still hand out (free on
-    the device plus its cached, unused blocks). Only when that cap is
-    smaller than the resident envelopes' rows does a launch hold fewer."""
+    rows, capped at plan.scratch_cap (half the memory PyTorch can still
+    hand out, shared out among the run's query shards). Only when that
+    cap is smaller than the resident envelopes' rows does a launch hold
+    fewer."""
     import ctypes
     total = int(np.asarray(lds, np.int64).sum()) * row_bytes
     cap = scratch_cap(dev)

@@ -94,10 +94,15 @@ def plan_launches(lds, models, wp: int, row_bytes: int,
 
 def scratch_cap(dev) -> int:
     """Half the memory PyTorch can still hand out on the card (free on
-    the device plus its cached, unused blocks): the most scratch one
-    launch may hold."""
+    the device plus its cached, unused blocks), shared out among the
+    run's query shards: the most scratch one launch may hold. Shards
+    may share one card and measure its free memory at the same moment,
+    so n of them together stay within half of it. Only the grouping of
+    launches depends on this, not what an instance computes."""
     import torch
+
+    from ..parallel.dist import process_shard
     free, _ = torch.cuda.mem_get_info(dev)
     avail = free + torch.cuda.memory_reserved(dev) \
         - torch.cuda.memory_allocated(dev)
-    return avail // 2
+    return avail // (2 * process_shard()[1])

@@ -47,6 +47,8 @@ from .hmm.gate_device import evaluate_gate_device, near_print_boundary
 from .io.fasta import read_fasta, write_fasta_bytes
 from .merger import merge_rows_bytes
 from .ops.forward import forward_bits
+from .parallel.dist import (gather_rows, process_shard, replaced,
+                            shard_indices)
 from .weighting import calculate_weights, read_weights, write_weights
 
 OMEGA = 1.0 / 256.0           # null2 prior weight (seqbias floor)
@@ -108,12 +110,18 @@ def _candidate_walk(reported, valid, pre, evaluated, gate_ok,
     return out
 
 
-def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
+def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
+                   q_owned=None):
     """Forward-score every query against every ensemble HMM on the
     device, then gate and overlay the candidates.
 
     Returns (scores [Q, H] rounded to 0.1 bit, valid [Q, H], indices,
-    banks): valid=False where the reporting gate drops a candidate."""
+    banks): valid=False where the reporting gate drops a candidate.
+    q_owned (query sharding, parallel/dist.py): the host stages (gate,
+    overlay, candidate walk, speculative start) run for these queries
+    only, and the other rows must not be consumed; device scoring (and
+    the full search's prefilter) stays whole-grid, as in the
+    reference."""
     from .hmm.profile import configure, null1_score
     from .native import _domaindef, set_trace_alphabet
 
@@ -151,7 +159,8 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
         lens[i] = len(c)
 
     H = len(indices)
-    owned = np.arange(Q)
+    owned = np.arange(Q) if q_owned is None else np.asarray(q_owned,
+                                                            np.int64)
     pre = np.zeros((Q, H), np.float64)
     for b, bt in zip(banks, banks_t):
         t1 = time.time()
@@ -206,7 +215,8 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device):
     full = getattr(Configs, "full_search_results", False)
     if full:
         drop = _full_search_gate(ens, indices, banks, banks_t, col_of,
-                                 codes, lens, qcodes, consume, nthreads)
+                                 codes, lens, qcodes, consume, nthreads,
+                                 owned)
     else:
         # candidate selection: each query's weight-rank top candidates
         # (see witch_tpu/pipeline.py:compute_scores for the rationale)
@@ -305,12 +315,13 @@ def _speculative_pairs(ens, indices, qcodes, reported, valid, pre,
 
 
 def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
-                      qcodes, consume, nthreads):
+                      qcodes, consume, nthreads, owned):
     """--full-search-results: the device flank prefilter classifies the
-    whole grid; pairs with a region run native domain definition on the
-    device's rows (evaluate_targets_rows, f64 Forward included). The
-    device null2 gate is not used here (witch_tpu/pipeline.py:528-535).
-    Returns drop [Q, H] (the pairs the prefilter found no region in)."""
+    whole grid; the owned queries' pairs with a region run native domain
+    definition on the device's rows (evaluate_targets_rows, f64 Forward
+    included). The device null2 gate is not used here
+    (witch_tpu/pipeline.py:528-535). Returns drop [Q, H] (the pairs the
+    prefilter found no region in)."""
     from .hmm.profile import configure
     from .native import _domaindef
 
@@ -329,6 +340,13 @@ def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
     Configs.runtime("  scoring: device gate prefilter dropped %d/%d pairs "
                     "(flank kernel %.2f ms, %d launches) (s): %f"
                     % (int(drop.sum()), Q * H, k_ms, k_n, time.time() - t0))
+    if len(owned) < Q:
+        # a shard evaluates its own queries' pairs (witch_tpu/pipeline.py:
+        # 389-391)
+        mine = np.zeros(Q, bool)
+        mine[owned] = True
+        rows = {j: tuple(x[mine[r[0]]] for x in r) for j, r in rows.items()}
+        rows = {j: r for j, r in rows.items() if len(r[0])}
     by_j = {j: [int(q) for q in rows[j][0]] for j in sorted(rows)}
     t0 = time.time()
 
@@ -517,12 +535,7 @@ def main_alignment_process(device=None):
 def _alignment_process(device):
     device = resolve_device(device)
     t_start = time.time()
-    shard = os.environ.get("WITCH_TPU_SHARD", "")
-    if shard and shard.split("/")[-1] != "1":
-        raise NotImplementedError(
-            "WITCH_TPU_SHARD=%s: query sharding is not ported yet "
-            "(ROADMAP.md, Queue 1: torch.distributed query sharding)"
-            % shard)
+    shard, n_shards = process_shard()
     molecule = Configs.molecule
     if molecule is None:
         src = (Configs.backbone_path or Configs.query_path
@@ -578,8 +591,9 @@ def _alignment_process(device):
             os.makedirs(tree_dir, exist_ok=True)
             tree_path = os.path.join(tree_dir, "backbone.est.tre")
             s2 = time.time()
-            estimate_tree(backbone, tree_path, device, ml=True,
-                          log=Configs.log)
+            with replaced(tree_path) as tmp:
+                estimate_tree(backbone, tmp, device, ml=True,
+                              log=Configs.log)
             Configs.runtime("Time to estimate backbone tree (s): %f"
                             % (time.time() - s2))
             Configs.log("Estimated backbone tree (NJ): %s" % tree_path)
@@ -589,9 +603,11 @@ def _alignment_process(device):
                              Configs.alignment_upper_bound, molecule,
                              n_workers=min(Configs.num_cpus,
                                            Configs.max_concurrent_jobs))
-        if Configs.keep_decomposition:
+        if Configs.keep_decomposition and n_shards == 1:
             # artifact writes overlap the scoring stage (nothing reads
-            # them back in this run); released once the banks are built
+            # them back in this run); released once the banks are built.
+            # Sharded, the merging process writes them after the gather,
+            # so no shard reads a sibling's directory half-written
             Configs._art_gate_event = threading.Event()
 
             def _write_art():
@@ -606,11 +622,22 @@ def _alignment_process(device):
 
     tmp_bb_dir = os.path.join(Configs.outdir, "tree_decomp", "backbone")
     os.makedirs(tmp_bb_dir, exist_ok=True)
-    backbone.write(os.path.join(tmp_bb_dir, "backbone.aln.fasta"))
+    with replaced(os.path.join(tmp_bb_dir, "backbone.aln.fasta")) as tmp:
+        backbone.write(tmp)
 
     qnames, qseqs, qcodes, renamed = _encode_queries(Configs.query_path,
                                                      alphabet)
     Configs.log("Loaded %d queries" % len(qnames))
+    # query sharding (parallel/dist.py): this process gates and aligns
+    # its own contiguous block of queries; the rows are gathered to one
+    # process for the merge
+    q_owned = None
+    if n_shards > 1:
+        q_owned = shard_indices(len(qnames), shard, n_shards)
+        Configs.log("Query shard %d/%d: owns %d/%d queries [%s..%s)"
+                    % (shard, n_shards, len(q_owned), len(qnames),
+                       q_owned[0] if len(q_owned) else "-",
+                       q_owned[-1] + 1 if len(q_owned) else "-"))
 
     # weights: reuse weights.txt, then persisted search results, then
     # score on the device (the reference's resume ladder)
@@ -640,14 +667,15 @@ def _alignment_process(device):
                 Configs.runtime("Time to load hmmsearch results (s): %f"
                                 % (time.time() - s))
         if scores is None:
-            scores, valid, indices, banks = compute_scores(ens, qcodes,
-                                                           device)
+            scores, valid, indices, banks = compute_scores(
+                ens, qcodes, device, q_owned=q_owned)
             Configs.runtime("Time for all-vs-all Forward scoring (s): %f"
                             % (time.time() - s))
             if art_thread is not None:
                 art_thread.join()
                 art_thread = None
-            if Configs.keep_decomposition and os.path.isdir(Configs.hmmdir):
+            if Configs.keep_decomposition and n_shards == 1 \
+                    and os.path.isdir(Configs.hmmdir):
                 s2 = time.time()
                 for j, idx in enumerate(indices):
                     res = {qnames[q]: (0.0, float(scores[q, j]))
@@ -656,22 +684,47 @@ def _alignment_process(device):
                 Configs.runtime("Time to persist hmmsearch results (s): %f"
                                 % (time.time() - s2))
         s = time.time()
-        weights = rank_and_weight(scores, valid, indices, ens.sizes(),
-                                  qnames)
+        # sharded, only the owned rows were gate-evaluated here
+        w_rows = np.arange(len(qnames)) if q_owned is None else q_owned
+        weights = rank_and_weight(scores[w_rows], valid[w_rows], indices,
+                                  ens.sizes(), [qnames[q] for q in w_rows])
         Configs.runtime("Time to obtain weights (s): %f" % (time.time() - s))
-        if Configs.save_weight:
+        if Configs.save_weight and n_shards == 1:
             write_weights(weights, weight_path)
 
-    checkpoint_path = os.path.join(Configs.outdir,
-                                   "checkpoint_alignments.txt.gz")
+    ckpt_name = ("checkpoint_alignments.txt.gz" if n_shards == 1 else
+                 "checkpoint_alignments.shard%d_of_%d.txt.gz"
+                 % (shard, n_shards))
+    checkpoint_path = os.path.join(Configs.outdir, ckpt_name)
     done = read_checkpoint(checkpoint_path)
+    a_q = range(len(qnames)) if q_owned is None else q_owned
     s = time.time()
-    rows, ignored = align_queries(ens, qnames, qseqs, qcodes, weights,
-                                  backbone_length, device, banks=banks,
-                                  checkpoint_path=checkpoint_path,
-                                  done=done)
+    rows, ignored = align_queries(
+        ens, [qnames[q] for q in a_q], [qseqs[q] for q in a_q],
+        [qcodes[q] for q in a_q], weights, backbone_length, device,
+        banks=banks, checkpoint_path=checkpoint_path, done=done)
     Configs.runtime("Time for per-query alignment (s): %f"
                     % (time.time() - s))
+
+    if n_shards > 1:
+        # every shard's rows, in shard order (= query order, so the merged
+        # files are the unsharded run's); one process goes on to merge
+        s = time.time()
+        gathered = gather_rows(rows, ignored, shard, n_shards,
+                               os.path.join(Configs.outdir, "shards"))
+        Configs.runtime("Time to gather shard rows (s): %f"
+                        % (time.time() - s))
+        if gathered is None:
+            Configs.log("Shard %d/%d: rows staged; merge owned by another "
+                        "process" % (shard, n_shards))
+            Configs.runtime("Total runtime (s): %f" % (time.time() - t_start))
+            return None
+        rows, ignored = gathered
+        if Configs.keep_decomposition and not have_dir:
+            art_thread = threading.Thread(
+                target=write_decomposition, args=(ens, Configs.hmmdir),
+                daemon=True)
+            art_thread.start()
 
     s = time.time()
     mnames, mmat, ins_mask = merge_rows_bytes(
@@ -708,13 +761,16 @@ def _alignment_process(device):
 
 def clear_temp_files():
     """Remove working artifacts after a successful run (the reference's
-    clearTempFiles, witch_msa/gcmm/gcmm.py:39-69)."""
+    clearTempFiles, witch_msa/gcmm/gcmm.py:39-69): the shards' staged rows
+    always, the whole tree_decomp tree with --keep-decomposition 0, else
+    its uppercased backbone copy (unless --keeptemp)."""
     import shutil
     if Configs.keeptemp:
         return
     td = os.path.join(Configs.outdir, "tree_decomp")
-    targets = [td] if not Configs.keep_decomposition else [
-        os.path.join(td, "backbone")]
+    targets = [os.path.join(Configs.outdir, "shards")]
+    targets.append(td if not Configs.keep_decomposition else
+                   os.path.join(td, "backbone"))
     for t in targets:
         if os.path.isdir(t):
             try:
