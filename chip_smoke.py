@@ -32,10 +32,15 @@ Phases:
                 1,568): ms, launches and bounds over all of them, and a
                 seeded sample (the 64 longest, 64 at random) held so;
        wide     (2e) a bank of a 8,000-state and a 16,384-state model
-                (Mp 8,096 and 16,416: OA's and flank's first versions,
+                (Mp 8,096 and 16,416: OA's and flank's cluster instances,
                 null2 rows in device memory, forward's second layout):
                 all four kernels with the tolerances above, vs plain and
-                native;
+                native, and OA's and flank's first versions' ms on the
+                same calls; (2h) the thread-block cluster meeting
+                (ops/cluster.py: ns of the barrier alone and of a DSMEM
+                exchange of one record at C = 2, 4 and 8, one cluster and
+                every co-resident one) and the clusters of each OA and
+                flank cluster shape the card holds at once;
        bench    (2g) witch_tpu_torch/tools/bench.py in process: bench.py's
                 JSON line (the full grid through the forward kernel, the
                 native domain definition rate), its seconds_per_full_grid
@@ -63,7 +68,7 @@ Phases:
      package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
      equal, at least DNA1K_JAX_MIN, and for a differing row the device
      and native pre-score rankings of its top models; then (4c) the same
-     backbone with --full-search-results 1 on its first 60 queries, a
+     backbone with --full-search-results 1 on its first 30 queries, a
      grid the prefilter drops pairs of: every query placed or ignored,
      and full_search_replay (the path's flank inputs through kernel and
      plain with the 2d bounds and decisions, every width on the
@@ -83,6 +88,21 @@ Phases:
      wall; then amino500 as WITCH_TPU_SHARD 0/2 and 1/2 started at the
      same moment into one outdir (the file-staged gather): exactly one
      merged, 600/600 rows equal the oracle and phase 3's bytes;
+     (4w) dnawide: scenario D on a 7,110-column DNA backbone
+     (make_scale_dataset.py --n 200 --queries 100 --cols 8000 --seed
+     20261017), its first DNAWIDE_Q queries: every query placed or
+     ignored, backbone rows intact, each bank's Mp and each kernel's
+     layout (OA on its cluster instance at every alignment bank), the
+     query rows against the JAX package's (ref_dnawide.*, at least
+     DNAWIDE_JAX; a differing row's pre-score rankings); (4wd, 4wn) the
+     forward and null2 kernels on its inputs (ms, bounds, vs plain on a
+     few); (4wo) all its OA pairs through the cluster kernel and the
+     first version on the same calls (ms, launches, bounds; the kernel
+     faster, the same flags and columns above the guard), a seeded
+     sample (16 longest, 16 at random) vs plain and native; (4wc) its
+     first DNAWIDE_FULL queries with --full-search-results 1:
+     full_search_replay with 2d's tolerances on the flank cluster
+     instance, the first version's ms on the same calls;
      (4g) the reference WITCH's DNA example against its oracle (all
      1,000 masked rows), where tests/test_golden.py finds its data, or a
      line saying the data is absent;
@@ -145,7 +165,16 @@ OA_GUARD = 2e-3
 AMINO = ("ref_amino500", 600)       # golden prefix, masked rows
 DNA_N = 1000                        # dna1k backbone and queries
 WIDE_M = (8000, 16384)              # phase 2e model sizes
-DNA_FULL = 60                       # dna1k queries of the full search
+DNA_FULL = 30                       # dna1k queries of the full search (cut
+                                    # from 60 for the smoke budget)
+# dnawide (4w): make_scale_dataset.py --n 200 --queries 100 --cols 8000
+# --seed 20261017, 7,110 columns; the queries run in 4w (cut from 100:
+# the host's exact-f32 overlay took 93.6 s of the 134.5 s wall at 100,
+# 49.4 s of 74.2 s at 40) and in its full search (4wc; cut from 10, whose
+# native domain definition of 493 kept pairs took 67.8 s of 117.9 s)
+DNAWIDE = (200, 100, 8000, 20261017)
+DNAWIDE_Q = 30
+DNAWIDE_FULL = 4
 SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
 WALL = {}               # CLI wall seconds by run label
@@ -155,6 +184,10 @@ WALL = {}               # CLI wall seconds by run label
 DNA1K_JAX_MIN = 1000
 JAX_DNA1K_IGNORED = ()
 DNA1K_DIAG = 20
+# dnawide against the JAX package (tests/golden/ref_dnawide.queries.
+# masked.fasta.gz): the query rows equal on the first chip run, below
+# which the check fails
+DNAWIDE_JAX = ("ref_dnawide.queries.masked.fasta.gz", 30)
 # the JAX package's rows of three more paths (tests/golden/, made on the
 # CPU with JAX_PLATFORMS=cpu python -m witch_tpu, commands in PERF.md):
 # golden file and the rows equal on the first chip run, below which the
@@ -255,6 +288,21 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def timed_call(fn):
+    """(fn(), its CUDA-event ms): one call, no warm-up. The plain
+    versions are timed so, on the call whose result is compared: a
+    second run would only repeat the same many small launches."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def read_fasta_dict(path):
     from witch_tpu_torch.io.fasta import read_fasta
     return dict(read_fasta(path))
@@ -318,12 +366,12 @@ def phase_forward(dev, result):
         cells += grid_cells(bt, lens)
         nbytes += table_bytes(bt) + 4 * codes.size + 4 * len(lens) * bt.H
         k = forward_nats(bt, c, ln)
-        p = forward_nats_ref(bt, c, ln, elems=1 << 26)
+        p, tp = timed_call(lambda: forward_nats_ref(bt, c, ln,
+                                                    elems=1 << 26))
         torch.cuda.synchronize()
         err = max(err, float(((k - p).abs() / LN2).max()))
         ms += cuda_ms(lambda: forward_nats(bt, c, ln), 3)
-        plain_ms += cuda_ms(lambda: forward_nats_ref(bt, c, ln,
-                                                     elems=1 << 26), 1)
+        plain_ms += tp
         bits_k.append(k.double().cpu().numpy() / LN2
                       - null1_bits(lens)[:, None])
         say("  bank H=%d Mp=%d: max|dbits| kernel-plain %.3g"
@@ -375,12 +423,11 @@ def phase_forward_path(calls, dev, result, label, n_plain=None):
         ln = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=dev)
         k = forward_nats(bt, c, ln)
         cs, ls = (c, ln) if n_plain is None else (c[:n_plain], ln[:n_plain])
-        p = forward_nats_ref(bt, cs, ls, elems=1 << 26)
-        torch.cuda.synchronize()
+        p, tp = timed_call(lambda: forward_nats_ref(bt, cs, ls,
+                                                    elems=1 << 26))
         e = float(((k[:len(ls)] - p).abs() / LN2).max())
         err = max(err, e)
         t = cuda_ms(lambda: forward_nats(bt, c, ln), 3)
-        tp = cuda_ms(lambda: forward_nats_ref(bt, cs, ls, elems=1 << 26), 1)
         ms += t
         plain_ms += tp
         say("  bank H=%d Mp=%d (layout, G, npl, Mpad %s), %d queries: "
@@ -732,8 +779,8 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
             sub = sorted(rng.choice(len(entries), min(k, len(entries)),
                                     replace=False).tolist())
         pks = _pack([entries[t] for t in sub], dev)
-        sp, dp = null2_nats_ref(bt, *pks, chunk=512 if sample else 1024)
-        torch.cuda.synchronize()
+        (sp, dp), tp = timed_call(lambda: null2_nats_ref(
+            bt, *pks, chunk=512 if sample else 1024))
         n_cmp += len(sub)
         idx = torch.as_tensor(sub, device=dev)
         for a, b, floor in ((sk[idx, :1], sp[:, :1], 1.0),
@@ -743,8 +790,7 @@ def phase_null2(rec, dev, result, label="2b: null2 kernel vs plain, "
             abs_err = max(abs_err, float(d.max()))
             worst = max(worst, float((d / b.abs().clamp(min=floor)).max()))
         ms += cuda_ms(lambda: null2_nats(bt, *pk), 2 if sample else 3)
-        plain_ms += cuda_ms(lambda: null2_nats_ref(
-            bt, *pks, chunk=512 if sample else 1024), 1)
+        plain_ms += tp
     b_ms, b_by = bound_ms("null2", cells, nbytes)
     say("  %d envelopes (%d against plain), %d launches: kernel %.2f ms, "
         "plain %.2f ms (on those %d); %.4g DP cells: bound %.3f ms (%s), "
@@ -804,8 +850,13 @@ def oa_compare(bt, pairs_rows, Ldmax, label):
     from witch_tpu_torch.ops.oa import oa_layout, oa_nats, oa_ref, pack_pairs
     pk = pack_pairs(bt, pairs_rows)
     ck, sk = oa_nats(bt, *pk, Ldmax=Ldmax)
-    cp, sp = oa_ref(bt, *pk)
     torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    cp, sp = oa_ref(bt, *pk)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])         # one call, no warm-up
     ck, sk, cp, sp = (x.cpu().numpy() for x in (ck, sk, cp, sp))
     off = pk[3].cpu().numpy()
     cols, bad = [], 0
@@ -818,7 +869,6 @@ def oa_compare(bt, pairs_rows, Ldmax, label):
     fin = np.isfinite(sk[:, 0]) & np.isfinite(sp[:, 0])
     dm = float(np.abs(sk[fin, 0] - sp[fin, 0]).max()) if fin.any() else 0.0
     ms, call = oa_kernel_ms(bt, pk, Ldmax)
-    plain_ms = cuda_ms(lambda: oa_ref(bt, *pk), 1)
     say("  %s (layout, G, npl, Mpad %s): %d pairs, kernel %.2f ms (call "
         "%.2f), plain %.2f ms, |dmargin| %.3g"
         % (label, oa_layout(bt.Mp), len(pairs_rows), ms, call, plain_ms,
@@ -917,13 +967,16 @@ def phase_oa(rec, banks_bench, codes, lens, dev, result):
                               / HBM_BYTES_PER_S * 1e3)
 
 
-def phase_oa_path(rec, dev, result, label, key, sample=64):
+def phase_oa_path(rec, dev, result, label, key, sample=64, first=False,
+                  layout=None):
     """The OA kernel on the pairs a main path gave it (its first recorded
     oa_columns call since rec.clear(); validate_oa's sample comes after
     it): ms and launches over all of them, and both bounds;
     a seeded sample (the `sample` longest pairs and `sample` more at
     random) against plain and native above the guard, margins within
-    1e-4 of plain."""
+    1e-4 of plain. `first`: the first version on the same calls too (one
+    timed call each; its columns and margins equal the kernel's);
+    `layout`: the layout every bank must take."""
     import numpy as np
     import torch
     from witch_tpu_torch import _build
@@ -935,13 +988,14 @@ def phase_oa_path(rec, dev, result, label, key, sample=64):
     for p, (idx, c) in enumerate(pairs):
         bi, row = bank_row[int(idx)]
         by_bank.setdefault(bi, []).append((p, row, c))
-    ms = cells = nbytes = padc = 0.0
-    launches = 0
+    ms = cells = nbytes = padc = ms_first = 0.0
+    launches = n_first = 0
+    same_first = True
     for bi, lst in sorted(by_bank.items()):
         bt = banks_t[bi]
         pk = pack_pairs(bt, [(r, c) for _, r, c in lst])
         n0 = _build.LAUNCHES["oa"]
-        oa_nats(bt, *pk, Ldmax=Ldmax)
+        ck, sk = oa_nats(bt, *pk, Ldmax=Ldmax)
         torch.cuda.synchronize()
         nl = _build.LAUNCHES["oa"] - n0
         t, call = oa_kernel_ms(bt, pk, Ldmax)
@@ -953,6 +1007,35 @@ def phase_oa_path(rec, dev, result, label, key, sample=64):
         say("  bank %d Mp %d (layout, G, npl, Mpad %s): %d pairs, %d "
             "launches, kernel %.2f ms (call %.2f)"
             % (bi, bt.Mp, oa_layout(bt.Mp), len(lst), nl, t, call))
+        if layout is not None:
+            check(oa_layout(bt.Mp)[0] == layout, "%s: OA at Mp %d takes "
+                  "layout %d" % (key, bt.Mp, layout))
+        if first:
+            k0, n0 = _build.KERNEL_MS["oa"], _build.LAUNCHES["oa"]
+            cf, sf = oa_nats(bt, *pk, Ldmax=Ldmax, first_version=True)
+            torch.cuda.synchronize()
+            tf = _build.KERNEL_MS["oa"] - k0
+            n_first += _build.LAUNCHES["oa"] - n0
+            ms_first += tf
+            ckh, cfh = ck.cpu().numpy(), cf.cpu().numpy()
+            skh, sfh = sk.cpu().numpy(), sf.cpu().numpy()
+            off = pk[3].cpu().numpy()
+            fin = np.isfinite(skh[:, 0])
+            same_first &= np.array_equal(skh[:, 1], sfh[:, 1]) \
+                and np.array_equal(fin, np.isfinite(sfh[:, 0]))
+            same_first &= float(np.abs(sfh[fin, 0] - skh[fin, 0]).max(
+                initial=0.0)) <= 1e-4
+            for t, (_, _, c) in enumerate(lst):
+                if skh[t, 0] >= OA_GUARD and skh[t, 1] > 0.5:
+                    a = slice(off[t], off[t] + len(c))
+                    same_first &= np.array_equal(ckh[a], cfh[a])
+            say("    first version on the same pairs: %.2f ms in %d "
+                "launches" % (tf, _build.LAUNCHES["oa"] - n0))
+    if first:
+        check(same_first and ms < ms_first, "%s: the kernel (%.2f ms) "
+              "faster than the first version (%.2f ms) on the same %d "
+              "pairs; the same flags, columns above the guard, finite "
+              "margins within 1e-4" % (key, ms, ms_first, len(pairs)))
     b_ms, b_by = bound_ms("oa", cells, nbytes)
     rows_ms = ROW_BYTES["oa"] * padc / HBM_BYTES_PER_S * 1e3
     say("  %d pairs, %d launches: kernel %.2f ms; %.4g DP cells: bound "
@@ -991,6 +1074,9 @@ def phase_oa_path(rec, dev, result, label, key, sample=64):
                                launches=launches, pairs=len(pairs),
                                cells=cells, bound_ms=b_ms, bound_by=b_by,
                                rows_bytes_ms=rows_ms)
+    if first:
+        result["oa_" + key].update(ms_first_version=ms_first,
+                                   launches_first_version=n_first)
 
 
 def phase_dna(tmp, rec):
@@ -1051,12 +1137,20 @@ def phase_dna(tmp, rec):
 
 
 def dna1k_vs_jax(rec, data, masked, ignored):
-    """The dna1k query rows against the JAX package's (scenario D on the
-    CPU, committed in tests/golden/; no query ignored there). For each
+    prescore_vs_jax(rec, os.path.join(data, "queries.fasta"), masked,
+                    ignored, ("ref_dna1k.queries.masked.fasta.gz",
+                              DNA1K_JAX_MIN), "dna1k", JAX_DNA1K_IGNORED)
+
+
+def prescore_vs_jax(rec, qpath, masked, ignored, golden, label,
+                    jax_ignored=()):
+    """A scenario-D run's query rows (the queries of qpath) against the
+    JAX package's (golden: (file under tests/golden/, the least count of
+    equal rows); made on the CPU, committed in tests/golden/). For each
     differing row, the two pre-score rankings of the query's top models:
     the port's f32 device pre-scores and the reference CPU path's native
     ones (forward_targets_simd, as witch_tpu/pipeline.py:232-267 calls
-    it), and the gap between them."""
+    it), and the gap between them. Returns the count of equal rows."""
     import numpy as np
     from witch_tpu_torch.config import Configs
     from witch_tpu_torch.hmm.profile import configure, null1_score
@@ -1064,16 +1158,15 @@ def dna1k_vs_jax(rec, data, masked, ignored):
     from witch_tpu_torch.native import _domaindef
     from witch_tpu_torch.pipeline import _native_args
 
-    with gzip.open(os.path.join(GOLD, "ref_dna1k.queries.masked.fasta.gz"),
-                   "rt") as f:
+    with gzip.open(os.path.join(GOLD, golden[0]), "rt") as f:
         ref = dict(read_fasta(f))
-    queries = list(read_fasta(os.path.join(data, "queries.fasta")))
+    queries = list(read_fasta(qpath))
     same = [n for n, _ in queries if masked.get(n) == ref.get(n)]
     differ = [q for q, (n, _) in enumerate(queries)
               if masked.get(n) != ref.get(n)]
-    say("  dna1k vs the JAX package's rows: %d/%d query rows equal; "
-        "ignored here %d (JAX: %d)" % (len(same), len(queries),
-                                       len(ignored), len(JAX_DNA1K_IGNORED)))
+    say("  %s vs the JAX package's rows: %d/%d query rows equal; "
+        "ignored here %d (JAX: %d)" % (label, len(same), len(queries),
+                                       len(ignored), len(jax_ignored)))
     ens, indices, banks = rec.dgate[-1]
     H = len(indices)
     col_of = {int(idx): j for j, idx in enumerate(indices)}
@@ -1089,8 +1182,8 @@ def dna1k_vs_jax(rec, data, masked, ignored):
         name, seq = queries[q]
         codes = [np.ascontiguousarray(qcodes[q], np.int32)]
         if len(codes[0]) != len(seq):
-            raise AssertionError("dna1k: query %d of the gate is not %s"
-                                 % (q, name))
+            raise AssertionError("%s: query %d of the gate is not %s"
+                                 % (label, q, name))
         nat = np.zeros(H)
         for j in range(H):
             if j not in args:
@@ -1116,9 +1209,10 @@ def dna1k_vs_jax(rec, data, masked, ignored):
                [int(indices[j]) for j in rn],
                gap or "rankings equal;",
                float(np.abs(pre[q, rp] - nat[rp]).max())))
-    check(len(same) >= DNA1K_JAX_MIN, "dna1k: %d/%d query rows equal the "
+    check(len(same) >= golden[1], "%s: %d/%d query rows equal the "
           "JAX package's (at least %d, the count of the first chip run)"
-          % (len(same), len(queries), DNA1K_JAX_MIN))
+          % (label, len(same), len(queries), golden[1]))
+    return len(same)
 
 
 def phase_dna_golden(tmp):
@@ -1261,14 +1355,12 @@ def phase_flank(banks_bench, codes, lens, dev, result):
         rbytes += flank_rows_bytes(bt, codes, lens)
         layouts[bt.Mp] = flank_layout(bt.Mp)
         k = flank_rows(bt, c, ln)
-        p = flank_rows_ref(bt, c, ln, elems=1 << 26)
-        torch.cuda.synchronize()
+        p, tp = timed_call(lambda: flank_rows_ref(bt, c, ln, elems=1 << 26))
         err_fwd = max(err_fwd, float((k[0] - p[0]).abs().max()))
         err_rows = max(err_rows, max(float((a - b_).abs().max())
                                      for a, b_ in zip(k[1:], p[1:])))
         ms += cuda_ms(lambda: flank_rows(bt, c, ln), 3)
-        plain_ms += cuda_ms(lambda: flank_rows_ref(bt, c, ln,
-                                                   elems=1 << 26), 1)
+        plain_ms += tp
         t0 = time.time()
         dk, dp, near, diff, far = _compare_decisions(k, p, lens, ln)
         t_host += time.time() - t0
@@ -1322,6 +1414,41 @@ def phase_flank(banks_bench, codes, lens, dev, result):
                            rows_bytes_ms=rbytes / HBM_BYTES_PER_S * 1e3)
 
 
+def phase_cluster(result):
+    """The cluster meeting on the card (ops/cluster.py): ns a meeting, the
+    barrier alone and with a DSMEM exchange of one record, at C = 2, 4 and
+    8, one cluster and every co-resident one; and how many clusters of the
+    OA and flank cluster instances the card holds at once
+    (cudaOccupancyMaxActiveClusters) at each shape their layouts take."""
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.cluster import barrier_probe
+
+    say("== phase 2h: the thread-block cluster meeting")
+    rows = barrier_probe((2, 4, 8))
+    for r in rows:
+        say("  C %d (%d co-resident clusters of 256 threads): barrier %.0f "
+            "ns (%.0f cycles), %.0f ns all at once; record exchange %.0f ns "
+            "(%.0f cycles), %.0f ns all at once"
+            % (r["C"], r["max_active_clusters"], r["barrier_one_ns"],
+               r["barrier_one_cycles"], r["barrier_all_ns"],
+               r["exchange_one_ns"], r["exchange_one_cycles"],
+               r["exchange_all_ns"]))
+    lib = _build.lib()
+    active = {}
+    for name, fn, shapes in (
+            ("oa", lib.witch_oa_cluster_active,
+             [(C, 8) for C in range(2, 9)] + [(5, 16), (8, 16)]),
+            ("flank", lib.witch_flank_cluster_active,
+             [(2, 16), (2, 24), (3, 24)])):
+        for C, npl in shapes:
+            active["%s C%d npl%d" % (name, C, npl)] = fn(C, npl)
+    say("  clusters resident at once: %s" % active)
+    check(all(r["max_active_clusters"] > 0 for r in rows)
+          and all(v > 0 for v in active.values()),
+          "every cluster shape fits on the card (at least one co-resident)")
+    result["cluster"] = dict(probe=rows, active=active)
+
+
 def _wide_problem(seed=17):
     """A bank of one 8,000-state and one 16,384-state DNA model (WIDE_M),
     and query fragments of each model's consensus."""
@@ -1357,7 +1484,8 @@ def phase_wide(rec, dev, result):
     import witch_tpu_torch.pipeline as pl
     from witch_tpu_torch.device import bank_to_torch
 
-    say("== phase 2e: oa and null2 on wide models (M 8,000 and 16,384)")
+    say("== phase 2e: oa, flank, forward and null2 on wide models (M 8,000 "
+        "and 16,384)")
     t0 = time.time()
     cores, queries, banks = _wide_problem()
     set_trace_alphabet("dna")
@@ -1367,8 +1495,11 @@ def phase_wide(rec, dev, result):
                 for r, idx in enumerate(b.hmm_indices)}
     banks_t = [bank_to_torch(b, dev) for b in banks]
     # oa: kernel vs plain vs native
+    import torch
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.ops.oa import oa_nats, pack_pairs
     bad_p = bad_n = 0
-    dmax = ms = plain_ms = 0.0
+    dmax = ms = plain_ms = ms_first = 0.0
     mps = []
     for j, qs in enumerate(queries):
         bi, r = bank_row[j]
@@ -1376,6 +1507,12 @@ def phase_wide(rec, dev, result):
         cols, mg, ok, bad, dm, t_k, t_p = oa_compare(
             banks_t[bi], [(r, q) for q in qs], 300, "wide model %d (Mp %d)"
             % (j, banks_t[bi].Mp))
+        k0 = _build.KERNEL_MS["oa"]
+        oa_nats(banks_t[bi], *pack_pairs(banks_t[bi], [(r, q) for q in qs]),
+                Ldmax=300, first_version=True)
+        torch.cuda.synchronize()
+        t_f = _build.KERNEL_MS["oa"] - k0
+        say("    the first version on the same pairs: %.2f ms" % t_f)
         a = native_args_from_bank(b, r)
         d = [np.ascontiguousarray(np.isfinite(x).astype(np.uint8))
              for x in a[1:]]
@@ -1387,18 +1524,17 @@ def phase_wide(rec, dev, result):
                 bad_n += 1
         bad_p += bad
         dmax = max(dmax, dm)
-        ms, plain_ms = t_k, t_p          # the widest model's times
+        ms, plain_ms, ms_first = t_k, t_p, t_f   # the widest model's
         mps.append(banks_t[bi].Mp)
     from witch_tpu_torch.ops.oa import oa_layout
     check(bad_p == 0 and bad_n == 0 and dmax <= 1e-4
           and all(oa_layout(m)[0] == 1 for m in mps),
-          "oa wide (the first version, layout 1 at Mp %s): %d pairs, "
+          "oa wide (the cluster instance, layout 1 at Mp %s): %d pairs, "
           "above-guard mismatches vs plain %d, vs native %d; finite margins "
           "within %.3g <= 1e-4 of plain"
           % (mps, sum(map(len, queries)), bad_p, bad_n, dmax))
-    # forward's second layout and flank's first version keep 3 rows in
-    # shared memory (197 KB at Mp 16,416)
-    import torch
+    # forward's second layout keeps 3 rows in shared memory (197 KB at Mp
+    # 16,416); flank's cluster instance a slice of the transitions a CTA
     from witch_tpu_torch.ops.flank import (flank_layout, flank_rows,
                                            flank_rows_ref)
     from witch_tpu_torch.ops.forward import LN2, forward_nats, \
@@ -1409,22 +1545,41 @@ def phase_wide(rec, dev, result):
         cm[i, :len(q)] = q
     c = torch.from_numpy(cm).to(dev)
     ln = torch.from_numpy(np.array([len(q) for q in qall], np.int32)).to(dev)
-    e_fw = e_ff = e_fr = 0.0
+    e_fw = e_ff = e_fr = fl_ms = fl_first = fl_plain = 0.0
     for bt in banks_t:
         e_fw = max(e_fw, float(((forward_nats(bt, c, ln)
                                  - forward_nats_ref(bt, c, ln)).abs()
                                 / LN2).max()))
-        k, p = flank_rows(bt, c, ln), flank_rows_ref(bt, c, ln)
+        k = flank_rows(bt, c, ln)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = flank_rows_ref(bt, c, ln)
+        torch.cuda.synchronize()
+        fl_plain += (time.time() - t0) * 1e3
         e_ff = max(e_ff, float((k[0] - p[0]).abs().max()))
         e_fr = max(e_fr, max(float((a - b_).abs().max())
                              for a, b_ in zip(k[1:], p[1:])))
+        for fv in (False, True):
+            k0 = _build.KERNEL_MS["flank"]
+            flank_rows(bt, c, ln, first_version=fv)
+            torch.cuda.synchronize()
+            t = _build.KERNEL_MS["flank"] - k0
+            if fv:
+                fl_first += t
+            else:
+                fl_ms += t
+    say("  flank on the %d queries of both models: kernel %.2f ms, the first "
+        "version %.2f ms" % (len(qall), fl_ms, fl_first))
     check(e_fw <= 1e-3 and e_ff <= 5e-3 and e_fr <= 2e-3
           and all(flank_layout(bt.Mp)[0] == 1 for bt in banks_t),
-          "forward and flank (its first version, layout 1) at Mp %s vs "
+          "forward and flank (its cluster instance, layout 1) at Mp %s vs "
           "plain: |dbits| %.3g <= 1e-3, flank |dfwd| %.3g <= 5e-3 nats, "
           "|drows| %.3g <= 2e-3" % (mps, e_fw, e_ff, e_fr))
     result["oa_wide"] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
-                             Mp=max(mps))
+                             Mp=max(mps), ms_first_version=ms_first)
+    result["flank_wide"] = dict(max_abs_err=max(e_ff, e_fr), ms=fl_ms,
+                                ms_first_version=fl_first,
+                                plain_ms=fl_plain)
     # null2: the port's device gate on these pairs, replayed by phase_null2
     rec.clear()
     qcodes = [q for qs in queries for q in qs]
@@ -1456,15 +1611,19 @@ def _query_rows_ok(outdir, qpath):
     return placed, len(ignored), bad
 
 
-def full_search_replay(rec, dev, label, need_drops):
+def full_search_replay(rec, dev, label, need_drops, layout=0, n_drop=500,
+                       n_kept=300, first=False):
     """Checks of the latest --full-search-results run from what the
     Recorder kept: the path's flank inputs replayed through the kernel
     and its plain version (2d bounds; decisions equal the path's, and
-    plain's away from the thresholds); the rows copied to the host are
-    the kept pairs' rows; 500 sampled dropped pairs unreported by native
-    evaluate_targets; 300 sampled kept pairs equal between native domain
-    definition on the copied rows (as the path calls it) and on its own
-    f64 rows. Returns the kernel and plain times on the path's grid."""
+    plain's away from the thresholds), every width on `layout`; the rows
+    copied to the host are the kept pairs' rows; n_drop sampled dropped
+    pairs unreported by native evaluate_targets; n_kept sampled kept
+    pairs equal between native domain definition on the copied rows (as
+    the path calls it) and on its own f64 rows. `first`: the first
+    version's ms on the same calls too (and its rows within the same
+    bounds of plain). Returns the kernel and plain times on the path's
+    grid."""
     import numpy as np
     import torch
     from witch_tpu_torch.hmm.profile import configure
@@ -1484,6 +1643,7 @@ def full_search_replay(rec, dev, label, need_drops):
     near_j = np.zeros((Q, H), bool)
     plain_rows = {}
     err_fwd = err_rows = ms = plain_ms = cells = nbytes = rbytes = 0.0
+    ms_first = err_first = 0.0
     n_diff = n_far = 0
     layouts = {bt.Mp: flank_layout(bt.Mp) for bt in banks_t}
     for bt, cols in zip(banks_t, bank_cols):
@@ -1492,14 +1652,23 @@ def full_search_replay(rec, dev, label, need_drops):
             + 4 * len(lens) * bt.H * (1 + 3 * (np.asarray(codes).shape[1] + 1))
         rbytes += flank_rows_bytes(bt, codes, lens)
         k = flank_rows(bt, c, ln)
-        p = flank_rows_ref(bt, c, ln, elems=1 << 26)
-        torch.cuda.synchronize()
+        p, tp = timed_call(lambda: flank_rows_ref(bt, c, ln, elems=1 << 26))
         err_fwd = max(err_fwd, float((k[0] - p[0]).abs().max()))
         err_rows = max(err_rows, max(float((a - b_).abs().max())
                                      for a, b_ in zip(k[1:], p[1:])))
         ms += cuda_ms(lambda: flank_rows(bt, c, ln), 3)
-        plain_ms += cuda_ms(lambda: flank_rows_ref(bt, c, ln,
-                                                   elems=1 << 26), 1)
+        plain_ms += tp
+        if first:
+            from witch_tpu_torch import _build
+            k0 = _build.KERNEL_MS["flank"]
+            f = flank_rows(bt, c, ln, first_version=True)
+            torch.cuda.synchronize()
+            ms_first += _build.KERNEL_MS["flank"] - k0
+            err_first = max(err_first,
+                            float((f[0] - p[0]).abs().max()) / 5e-3,
+                            max(float((a - b_).abs().max()) / 2e-3
+                                for a, b_ in zip(f[1:], p[1:])))
+            del f
         dk, dp, near, diff, far = _compare_decisions(k, p, lens, ln)
         n_diff += len(diff)
         n_far += far
@@ -1518,9 +1687,15 @@ def full_search_replay(rec, dev, label, need_drops):
         "decisions differ from plain, %d of them not near RT1/RT2/RT3"
         % (Q * H, layouts, ms, plain_ms, b_ms, b_by, rows_ms,
            int(near_j.sum()), n_diff, n_far))
-    check(all(x[0] == 0 for x in layouts.values()),
-          "%s: the warp-per-pair flank kernel (layout 0) at every width"
-          % label)
+    check(all(x[0] == layout for x in layouts.values()),
+          "%s: the %s flank kernel (layout %d) at every width"
+          % (label, ("warp-per-pair", "cluster")[layout], layout))
+    if first:
+        say("  first version on the same calls: %.2f ms (its worst row "
+            "error %.3g of the bounds below)" % (ms_first, err_first))
+        check(err_first <= 1.0 and ms < ms_first, "%s: the kernel (%.2f "
+              "ms) faster than the first version (%.2f ms) on the same "
+              "calls" % (label, ms, ms_first))
     check(err_fwd <= 5e-3 and err_rows <= 2e-3,
           "%s: flank kernel vs plain on the path's inputs: |dfwd| %.3g <= "
           "5e-3 nats, |drows| %.3g <= 2e-3" % (label, err_fwd, err_rows))
@@ -1553,7 +1728,7 @@ def full_search_replay(rec, dev, label, need_drops):
     say("  the prefilter dropped %d of %d pairs" % (len(dq), dec.size))
     if need_drops:
         check(len(dq) > 0, "%s: the prefilter dropped pairs" % label)
-    pick = rng.choice(len(dq), min(500, len(dq)), replace=False)
+    pick = rng.choice(len(dq), min(n_drop, len(dq)), replace=False)
     reported = 0
     for j in np.unique(dj[pick]):
         qs = dq[pick][dj[pick] == j]
@@ -1562,12 +1737,12 @@ def full_search_replay(rec, dev, label, need_drops):
                             for q in qs], 42, 200, 1, 8)
         reported += int(((np.asarray(out[0]) > 0)
                          & (np.asarray(out[1]) > 0)).sum())
-    check(len(pick) == min(500, len(dq)) and reported == 0,
+    check(len(pick) == min(n_drop, len(dq)) and reported == 0,
           "%s: %d dropped pairs sampled, %d reported by native "
           "evaluate_targets" % (label, len(pick), reported))
 
     kq, kj = np.nonzero(dec >= 0)
-    pick = rng.choice(len(kq), min(300, len(kq)), replace=False)
+    pick = rng.choice(len(kq), min(n_kept, len(kq)), replace=False)
     nbad = n_cmp = n_near = 0
     dsb = dse = dss = 0.0
     for j in np.unique(kj[pick]):
@@ -1595,10 +1770,13 @@ def full_search_replay(rec, dev, label, need_drops):
     check(n_cmp > 0 and nbad == 0 and dsb < 2e-3 and dse < 2e-3
           and dss < 5e-3, "%s: native domain definition on the device rows "
           "equals native evaluate_targets on %d kept pairs" % (label, n_cmp))
-    return dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
-                plain_ms=plain_ms, pairs=Q * H, dropped=len(dq),
-                bound_ms=b_ms, bound_by=b_by, rows_bytes_ms=rows_ms,
-                layouts=layouts)
+    out = dict(max_abs_err=max(err_fwd, err_rows), ms=ms,
+               plain_ms=plain_ms, pairs=Q * H, dropped=len(dq),
+               bound_ms=b_ms, bound_by=b_by, rows_bytes_ms=rows_ms,
+               layouts=layouts)
+    if first:
+        out["ms_first_version"] = ms_first
+    return out
 
 
 def phase_full_search(tmp, rec, dev, result):
@@ -1645,6 +1823,112 @@ def phase_full_search_dna(tmp, rec, dev, result):
           "residues (%d) or ignored (%d)" % (placed, n_ign))
     result["flank_full_search_dna"] = full_search_replay(
         rec, dev, "dna1k full search", need_drops=True)
+    return launches
+
+
+def dnawide_data(tmp):
+    """phase 4w's data (DNAWIDE), generated once per run."""
+    data = os.path.join(tmp, "dnawide")
+    if not os.path.exists(os.path.join(data, "queries.fasta")):
+        n, q, cols, seed = DNAWIDE
+        t0 = time.time()
+        subprocess.run([sys.executable, os.path.join(
+            ROOT, "scripts", "make_scale_dataset.py"), "--n", str(n),
+            "--queries", str(q), "--cols", str(cols), "--seed", str(seed),
+            "--out", data], check=True, capture_output=True, timeout=300)
+        say("  dataset generated in %.2f s" % (time.time() - t0))
+    return data
+
+
+def phase_dnawide(tmp, rec, dev, result):
+    """dnawide scenario D through the CLI at the dataset's full width:
+    every query placed or ignored, backbone rows intact, the forward, null2
+    and oa kernels launched, each bank's Mp and each kernel's layout (OA on
+    the cluster layout), the query rows against the JAX package's (at
+    least DNAWIDE_JAX, the pre-score rankings of a differing row). A
+    query's row depends on that query alone, so the first DNAWIDE_Q
+    queries are held against the golden of all 100."""
+    from witch_tpu_torch.io.fasta import read_fasta, write_fasta
+    from witch_tpu_torch.ops.flank import flank_layout
+    from witch_tpu_torch.ops.forward import fwd_layout
+    from witch_tpu_torch.ops.null2 import n2_layout
+    from witch_tpu_torch.ops.oa import oa_layout
+
+    say("== phase 4w: dnawide scenario D, %d x 7,110-column DNA backbone "
+        "(make_scale_dataset.py --cols %d), its first %d queries"
+        % (DNAWIDE[0], DNAWIDE[2], DNAWIDE_Q))
+    data = dnawide_data(tmp)
+    qpath = os.path.join(tmp, "dnawide.queries.fasta")
+    write_fasta(list(read_fasta(os.path.join(data, "queries.fasta")))
+                [:DNAWIDE_Q], qpath)
+    outdir = os.path.join(tmp, "dnawide_out")
+    rec.clear()
+    out, dt, launches = run_cli([
+        "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+        "-e", os.path.join(data, "backbone.tre"),
+        "-q", qpath, "-d", outdir, "-o", "aligned.fasta"])
+    print_breakdown(outdir)
+    say("  wall %.2f s; launches %s" % (dt, launches))
+    WALL["dnawide"] = dt
+    placed, n_ign, bad = _query_rows_ok(outdir, qpath)
+    check(not bad, "dnawide: every query placed with its residues (%d) or "
+          "ignored (%d)" % (placed, n_ign))
+    masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
+    bb = read_fasta_dict(os.path.join(data, "backbone.aln.fasta.gz"))
+    badb = [n for n, s in bb.items() if masked.get(n) != s.upper()]
+    check(not badb, "dnawide: %d/%d backbone rows equal the input"
+          % (len(bb) - len(badb), len(bb)))
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
+          "dnawide: forward, null2 and oa launched on the main path %s"
+          % launches)
+    score = sorted({bt.Mp for bt, _, _ in rec.fwd})
+    align = sorted({rec.oa[0][0][bi].Mp for bi, _ in
+                    rec.oa[0][1].values()})
+    for Mp in sorted(set(score) | set(align)):
+        say("  bank Mp %d (%s): forward %s, null2 %s, oa %s, flank %s"
+            % (Mp, "+".join(x for x, ms in (("scoring", score),
+                                             ("alignment", align))
+                            if Mp in ms), fwd_layout(Mp), n2_layout(Mp),
+               oa_layout(Mp), flank_layout(Mp)))
+    check(align and all(oa_layout(m)[0] == 1 for m in align),
+          "dnawide: OA on the cluster layout at every alignment bank %s"
+          % align)
+    ign_p = os.path.join(outdir, "ignored_queries.fasta")
+    ignored = set(read_fasta_dict(ign_p)) if os.path.exists(ign_p) else set()
+    result["rows_dnawide"] = prescore_vs_jax(rec, qpath, masked, ignored,
+                                             DNAWIDE_JAX, "dnawide")
+    return launches
+
+
+def phase_full_search_dnawide(tmp, rec, dev, result):
+    from witch_tpu_torch.io.fasta import read_fasta, write_fasta
+
+    say("== phase 4wc: dnawide backbone, %d queries, --full-search-results "
+        "1" % DNAWIDE_FULL)
+    data = dnawide_data(tmp)
+    qpath = os.path.join(tmp, "dnawide_full.queries.fasta")
+    write_fasta(list(read_fasta(os.path.join(data, "queries.fasta")))
+                [:DNAWIDE_FULL], qpath)
+    outdir = os.path.join(tmp, "dnawide_full")
+    rec.clear()
+    out, dt, launches = run_cli([
+        "-b", os.path.join(data, "backbone.aln.fasta.gz"),
+        "-e", os.path.join(data, "backbone.tre"),
+        "-q", qpath, "-d", outdir, "-o", "aligned.fasta",
+        "--full-search-results", "1"])
+    print_breakdown(outdir)
+    say("  wall %.2f s; launches %s" % (dt, launches))
+    WALL["dnawide_full"] = dt
+    check(launches["flank"] > 0 and launches["forward"] > 0
+          and launches["oa"] > 0,
+          "dnawide full search: forward, flank and oa kernels launched %s"
+          % launches)
+    placed, n_ign, bad = _query_rows_ok(outdir, qpath)
+    check(not bad, "dnawide full search: every query placed with its "
+          "residues (%d) or ignored (%d)" % (placed, n_ign))
+    result["flank_full_search_dnawide"] = full_search_replay(
+        rec, dev, "dnawide full search", need_drops=False, layout=1,
+        n_drop=16, n_kept=16, first=True)
     return launches
 
 
@@ -2074,6 +2358,7 @@ def main():
         timed(phase_forward_path, list(rec.fwd), dev, result, "2f_amino500")
         timed(phase_null2, rec, dev, result)
         timed(phase_oa, rec, banks, codes, lens, dev, result)
+        timed(phase_cluster, result)
         timed(phase_wide, rec, dev, result)
         paths["full_search"] = timed(phase_full_search, tmp, rec, dev,
                                      result)
@@ -2085,6 +2370,16 @@ def main():
               "alignment pairs", "4e_dna1k")
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
+        paths["dnawide"] = timed(phase_dnawide, tmp, rec, dev, result)
+        timed(phase_forward_path, list(rec.fwd), dev, result, "4wd_dnawide",
+              2)
+        timed(phase_null2, rec, dev, result, "4wn: null2 kernel vs plain, "
+              "dnawide gate envelopes", "null2_dnawide", 16, False)
+        timed(phase_oa_path, rec, dev, result, "4wo: oa kernel on dnawide's "
+              "alignment pairs, and its first version", "4w_dnawide", 16,
+              True, 1)
+        paths["dnawide_full"] = timed(phase_full_search_dnawide, tmp, rec,
+                                      dev, result)
         paths["scenario_c"] = timed(phase_scenario_c, tmp, rec)
         paths["sharded"] = timed(phase_sharded, tmp)
         golden = timed(phase_dna_golden, tmp)
@@ -2123,6 +2418,11 @@ def main():
         # OA's entry also carries its stored rows' bound and, per tag,
         # the pairs and which bound binds
         extras = ("bound_ms", "envelopes", "launches", "rows_bytes_ms")
+        if name in ("oa", "flank"):
+            # the cluster meeting's ns and the co-resident clusters
+            # (phase 2h), and per tag the first version on the same calls
+            k["cluster"] = result["cluster"]
+            extras += ("ms_first_version", "launches_first_version")
         if name == "oa":
             k["rows_bytes_ms"] = r["rows_bytes_ms"]
             extras += ("bound_by", "pairs")
@@ -2130,8 +2430,8 @@ def main():
             # the stored specials' and outputs' bound, and the layout
             # (layout, G, npl, Mpad) of each width it ran at
             k["rows_bytes_ms"] = r["rows_bytes_ms"]
-            k["layouts"] = {str(mp): list(v) for t in ("", "_full_search",
-                                                      "_full_search_dna")
+            k["layouts"] = {str(mp): list(v) for t in (
+                "", "_full_search", "_full_search_dna", "_full_search_dnawide")
                             for mp, v in result.get(name + t, {}).get(
                                 "layouts", {}).items()}
             extras += ("bound_by", "pairs")
@@ -2149,7 +2449,8 @@ def main():
                        "max_abs_diff_first_version", "layouts")
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
                     "4d_dna1k", "4e_dna1k", "bench", "scenario_a",
-                    "dna1k_backbone"):
+                    "dna1k_backbone", "4wd_dnawide", "dnawide", "4w_dnawide",
+                    "full_search_dnawide"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],

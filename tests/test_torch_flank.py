@@ -261,9 +261,10 @@ def test_flank_kernel_on_card_matches_plain():
 @pytest.mark.cuda
 def test_forward_and_flank_kernels_at_the_state_cap():
     """A 16,384-state model (Mp 16,416): the forward kernel's second
-    layout and the flank kernel's first version (ops/flank.py:flank_layout
-    1, above the warp-per-pair kernel's widths) keep three f32 rows in
-    shared memory (197 KB of the 227 KB)."""
+    layout keeps three f32 rows in shared memory (197 KB of the 227 KB);
+    the flank kernel's cluster instance (ops/flank.py:flank_layout 1,
+    above the warp-per-pair kernel's widths) spreads the pair over 3
+    CTAs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from witch_tpu.core.alphabet import DNA

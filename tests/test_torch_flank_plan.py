@@ -19,15 +19,16 @@ from test_torch_flank import _toy
 
 WIDTHS = [(416, (0, 1, 16, 512)), (1312, (0, 1, 48, 1536)),
           (1440, (0, 1, 48, 1536)), (1568, (0, 2, 32, 2048)),
-          (2720, (0, 2, 48, 3072)), (8096, (1, 0, 0, 8096)),
-          (16416, (1, 0, 0, 16416))]
+          (2720, (0, 2, 48, 3072)), (8096, (1, 16, 16, 8192)),
+          (16416, (1, 24, 24, 18432))]
 
 
 @pytest.mark.parametrize("Mp,want", WIDTHS)
 def test_flank_layout_by_width(Mp, want):
-    """The new design at every width of the bench grid, amino500 and
-    dna1k; the first version at phase 2e's 8,000- and 16,384-state
-    models."""
+    """The warp-per-pair kernel at every width of the bench grid,
+    amino500 and dna1k; the cluster instance at phase 2e's 8,000- and
+    16,384-state models (tests/test_torch_wide.py holds every cluster
+    boundary)."""
     got = flank_layout(Mp)
     assert got == want
     layout, G, npl, Mpad = got
@@ -35,6 +36,10 @@ def test_flank_layout_by_width(Mp, want):
         assert Mpad == 32 * G * npl >= Mp and G <= FLANK_WARPS
         assert 32 * (G - 1) * npl < Mp              # no warp idle
         assert smem_bytes(G, Mpad) <= 232448 - 1024
+    else:
+        C = G // FLANK_WARPS
+        assert Mpad == 32 * G * npl >= Mp and G == FLANK_WARPS * C
+        assert smem_bytes(G, Mpad, C) <= 232448 - 1024
 
 
 def _seeded_bank(Mp, seed, H=2, K=5):

@@ -1,10 +1,10 @@
 """The JAX package's rows that chip_smoke.py holds the port's against on
 the card (tests/golden/, made with JAX_PLATFORMS=cpu python -m witch_tpu;
 commands in PERF.md): scenario A's masked rows (phases 5 and 5d), dna1k
-scenario C's query rows (4b) and amino500 -m old-witch's query rows
-(3c). Each golden names exactly the sequences of the input that
-chip_smoke.py regenerates (none ignored by the JAX run), and its rows are
-flush."""
+scenario C's query rows (4b), amino500 -m old-witch's query rows (3c)
+and the 7,110-column dnawide backbone's query rows (4w). Each golden
+names exactly the sequences of the input that chip_smoke.py regenerates
+(none ignored by the JAX run), and its rows are flush."""
 
 import gzip
 import os
@@ -19,11 +19,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")
 
 
-def _dataset(tmp, n, queries, seed):
+def _dataset(tmp, n, queries, seed, cols=None):
     out = os.path.join(tmp, "data")
     subprocess.run([sys.executable, os.path.join(
         ROOT, "scripts", "make_scale_dataset.py"), "--n", str(n),
-        "--queries", str(queries), "--seed", str(seed), "--out", out],
+        "--queries", str(queries), "--seed", str(seed), "--out", out]
+        + (["--cols", str(cols)] if cols else []),
         check=True, capture_output=True, timeout=300)
     return out
 
@@ -43,6 +44,17 @@ def _dna1k_queries(tmp):
     return [n for n, _ in read_fasta(os.path.join(d, "queries.fasta"))]
 
 
+def _dnawide(tmp):
+    """chip_smoke.py phase 4w's data: make_scale_dataset.py --n 200
+    --queries 100 --cols 8000 --seed 20261017."""
+    return _dataset(tmp, 200, 100, 20261017, cols=8000)
+
+
+def _dnawide_queries(tmp):
+    return [n for n, _ in read_fasta(os.path.join(_dnawide(tmp),
+                                                  "queries.fasta"))]
+
+
 def _amino500_queries(tmp):
     return [n for n, _ in read_fasta(os.path.join(
         GOLD, "ref_amino500.queries.fasta"))]
@@ -52,6 +64,7 @@ GOLDENS = {
     "ref_scenA.aligned.masked.fasta.gz": (_scen_a_names, 400),
     "ref_dna1k_c.queries.masked.fasta.gz": (_dna1k_queries, 1000),
     "ref_amino500_ow.queries.masked.fasta.gz": (_amino500_queries, 500),
+    "ref_dnawide.queries.masked.fasta.gz": (_dnawide_queries, 100),
 }
 
 
@@ -79,3 +92,14 @@ def test_golden_rows_flush(golden):
     alphabet = set("".join(s for _, s in rows))
     assert alphabet <= set("ABCDEFGHIJKLMNOPQRSTUVWXYZ-*"), alphabet
     assert any(set(s) - {"-"} for _, s in rows)
+
+
+def test_dnawide_golden_width_is_the_backbone(tmp_path):
+    """The wide golden's rows span the regenerated backbone's 7,110
+    columns (a masked row keeps the backbone's columns only), so the
+    models of its ensemble reach the cluster layouts' widths."""
+    d = _dnawide(str(tmp_path))
+    bb = list(read_fasta(os.path.join(d, "backbone.aln.fasta.gz")))
+    rows = _rows("ref_dnawide.queries.masked.fasta.gz")
+    assert len(bb) == 200 and len(bb[0][1]) == 7110
+    assert {len(s) for _, s in rows} == {len(bb[0][1])}

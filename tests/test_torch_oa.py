@@ -147,7 +147,7 @@ def test_oa_kernel_wide_models_match_plain(M):
 def test_oa_kernel_widths_match_plain(M):
     """Mp 416, 1,440, 1,568 and 2,720 (the main paths' and the bench
     grid's widths) and both sides of the dispatch boundary (Mp 4,000 on
-    the warp-per-pair kernel, 4,128 on the first version)."""
+    the warp-per-pair kernel, 4,128 on its cluster instance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from witch_tpu_torch.ops.oa import oa_layout, oa_nats, oa_ref, pack_pairs

@@ -21,15 +21,21 @@ from test_torch_oa import _cores
     (1440, (0, 6, 8, 1536)), (1568, (0, 7, 8, 1792)),
     (2048, (0, 8, 8, 2048)), (2049, (0, 5, 16, 2560)),
     (2720, (0, 6, 16, 3072)), (4000, (0, 8, 16, 4096)),
-    (4096, (0, 8, 16, 4096)), (4097, (1, 0, 0, 4097)),
-    (4128, (1, 0, 0, 4128)), (16416, (1, 0, 0, 16416))])
+    (4096, (0, 8, 16, 4096)), (4097, (1, 24, 8, 6144)),
+    (4128, (1, 24, 8, 6144)), (16416, (1, 40, 16, 20480))])
 def test_oa_layout_by_width(Mp, want):
+    """The warp-per-pair kernel up to Mp 4,096; above, the cluster
+    instance (G = 8 C warps on C CTAs; tests/test_torch_wide.py holds
+    every cluster boundary)."""
     got = oa_layout(Mp)
     assert got == want
     layout, G, npl, Mpad = got
     if layout == 0:
         assert Mpad == 32 * G * npl >= Mp and G <= 8
         assert 32 * (G - 1) * npl < Mp          # no warp idle
+    else:
+        assert Mpad == 32 * G * npl >= Mp and G % 8 == 0 and 16 <= G <= 64
+        assert 32 * (G - 8) * npl < Mp          # no CTA idle
 
 
 @pytest.mark.parametrize("seed,n,n_models,Mp,budget_rows", [

@@ -21,7 +21,8 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu", "pairhmm.cu")
+SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu", "pairhmm.cu",
+           "cluster.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "witch_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -120,14 +121,24 @@ def lib():
             so.witch_null2_ctas_per_sm.argtypes = [I] * 4 + [P]
             so.witch_oa.argtypes = [P] * 16 + [I, I, I, I, P]
             so.witch_oa_warp.argtypes = [P] * 17 + [I] * 6 + [P]
+            so.witch_oa_cluster.argtypes = [P] * 17 + [I] * 6 + [P]
+            so.witch_oa_cluster_active.argtypes = [I, I]
             so.witch_flank.argtypes = [P] * 9 + [I] * 6 + [P]
             so.witch_flank_warp.argtypes = [P] * 11 + [I] * 8 + [P]
+            so.witch_flank_cluster.argtypes = [P] * 11 + [I] * 8 + [P]
+            so.witch_flank_cluster_active.argtypes = [I, I]
             so.witch_pairhmm.argtypes = [P] * 7 + [I] * 5 + \
                 [ctypes.c_float] * 4 + [P]
             so.witch_pairhmm_reg.argtypes = [P] * 6 + [I] * 5 + \
                 [ctypes.c_float] * 4 + [P]
-            for fn in (so.witch_forward_nats, so.witch_null2, so.witch_oa,
-                       so.witch_oa_warp, so.witch_flank, so.witch_flank_warp,
+            so.witch_cluster_probe.argtypes = [I] * 4 + [P] * 3
+            so.witch_cluster_probe_active.argtypes = [I]
+            for fn in (so.witch_cluster_probe, so.witch_cluster_probe_active,
+                       so.witch_forward_nats, so.witch_null2, so.witch_oa,
+                       so.witch_oa_warp, so.witch_oa_cluster,
+                       so.witch_oa_cluster_active, so.witch_flank,
+                       so.witch_flank_warp, so.witch_flank_cluster,
+                       so.witch_flank_cluster_active,
                        so.witch_null2_ctas_per_sm, so.witch_pairhmm,
                        so.witch_pairhmm_reg):
                 fn.restype = I

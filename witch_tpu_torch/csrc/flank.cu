@@ -28,14 +28,17 @@
 // sets the time, as for forward.cu: more warps a pair lose wherever the
 // grid fills the card (flank_bench.py --layouts).
 //
-// Two kernels, picked by width (ops/flank.py:flank_layout):
+// Two layouts of one kernel, picked by width (ops/flank.py:flank_layout),
+// and the first version, kept for timing (first_version=True; no path
+// takes it):
 //
 // flank_warp_kernel: one warp, or G warps for wide models, per pair, and
 // several pairs of one model per CTA, the row in registers in the lane-slot
 // layout of common.cuh (state k = (g*32 + lane)*npl + j at slot
 // (j*G + g)*32 + lane); the model's transitions copied into shared memory
 // once per CTA. Every width whose transitions fit there (Mpad up to
-// ~7,000): every bank of the full-search paths and the bench grid.
+// 6,400: bank widths up to Mp 6,304): every bank of amino500's, dna1k's
+// and the bench grid's.
 // - Forward: as forward.cu's. With G = 1 a row has no barrier: the delete
 //   chain is a warp scan of affine maps whose multipliers (products of
 //   t_dd) are taken once per pair, and the E sum and the rescale max are
@@ -62,15 +65,39 @@
 // - The wrapper sorts the queries longest first (ops/flank.py:cta_queries),
 //   so the pairs of a CTA end together; each writes at its own [q, h].
 //
-// flank_kernel, the first version, for wider models (Mp above ~7,000, up
-// to the 16,384-state cap): one CTA of 256 threads per pair, the rows
-// (3 * Mp floats, 197 KB at Mp 16,416) in shared memory and updated in
-// place with the block-wide row helpers of common.cuh, a block barrier on
-// every row.
+// The cluster instance (flank_warp_kernel<NPL, true>, layout 1), from
+// bank width Mp 6,432 up to the 16,384-state cap: the same design over a
+// thread-block cluster. A pair's G = 8 C warps lie on C CTAs of 8 warps
+// (C 2 and 16 states a lane at dnawide's Mp 7,072 and 7,200; C 3 and 24 at
+// Mp 16,416), one pair a cluster. Each CTA copies only its own slice of
+// the tables (8 x 256 npl floats of transitions; ops/flank.py:
+// flank_tables lays them out per CTA in the slot layout of its 256
+// lanes), which is what the warp-per-pair kernel could not fit: a whole
+// model's 8 x Mpad floats in one CTA. The row's one meeting, Forward and
+// Backward alike, goes through distributed shared memory: each warp
+// pushes its record (the Forward's delete-chain carry, E sum and max;
+// the Backward's max, B sum, D_c and mne at its first state) into the
+// same double-buffered slot of every CTA (lane r < C stores rank r's
+// copy), then the cluster crosses one barrier (barrier.cluster arrive
+// with release, wait with acquire) and every CTA reads all records from
+// its own shared memory. The loop-invariant multipliers go out the same
+// way once, with each warp's last-state transitions, which the warp
+// above needs (its outflow and the Backward's X) and which another CTA
+// may hold. The stored specials and the outputs stay per pair (its first
+// warp, in the cluster's first CTA). A meeting costs ~0.4-0.5 us alone
+// and 1-2 us with the exchange at these cluster sizes (phase 2h of
+// chip_smoke.py, ops/cluster.py), against the first version's dozen
+// block barriers and per-thread chunk loops a row.
+//
+// flank_kernel, the first version: one CTA of 256 threads per pair, the
+// rows (3 * Mp floats, 197 KB at Mp 16,416) in shared memory and updated
+// in place with the block-wide row helpers of common.cuh, a block barrier
+// on every row.
 
 #include <float.h>
 #include <math.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 static constexpr float FLANK_FLOOR = 1e-35f;   // flank_device.py:93,143
@@ -78,6 +105,9 @@ static constexpr float FLANK_FLOOR = 1e-35f;   // flank_device.py:93,143
 #define FL_THREADS 256
 #define FL_XS 8          // floats per warp of a row's exchange
 #define FL_WS 4          // loop-invariant floats per warp
+#define FL_WS_C 8        // the same in the cluster instance, with the last
+                         // state's t_mm, t_im, t_dm and t_dd (another CTA
+                         // may hold them)
 #define FL_SPEC 5        // stored specials per row
 
 // numpy.nan_to_num for f32: NaN -> 0, +-inf -> +-FLT_MAX
@@ -87,7 +117,7 @@ static __device__ __forceinline__ float nan0(float x) {
     return x;
 }
 
-template <int NPL>
+template <int NPL, bool kC>
 __global__ void __launch_bounds__(FL_THREADS)
     flank_warp_kernel(const float *__restrict__ em_t,
                       const float *__restrict__ tr_t,
@@ -98,22 +128,31 @@ __global__ void __launch_bounds__(FL_THREADS)
                       float *__restrict__ fwd_out, float *__restrict__ ppB,
                       float *__restrict__ ppE, float *__restrict__ mocc,
                       float *__restrict__ fspec, int H, int K, int Lstride,
-                      int W, int G, int Mpad) {
+                      int W, int G, int Mpad, int nC) {
     extern __shared__ float smem[];
-    const int S = G * 32;                  // slot stride from j to j + 1
-    const int WP = blockDim.x / S;         // pairs in this CTA
+    constexpr int WS = kC ? FL_WS_C : FL_WS;
+    const int S = G * 32;                  // lanes of a pair
+    const int WP = kC ? 1 : blockDim.x / S;   // pairs in this CTA (cluster)
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int p = warp / G, g = warp - p * G;
-    const int h = blockIdx.x % H;
-    const int sl = (blockIdx.x / H) * WP + p;      // the pair's query slot
-    float *sX = smem + 8 * Mpad;                   // [2][WP][G][FL_XS]
-    float *sW = sX + 2 * WP * G * FL_XS + p * G * FL_WS;   // [G][FL_WS]
+    const int rank = kC ? cluster_rank() : 0;
+    const int p = kC ? 0 : warp / G;
+    const int g = kC ? rank * (FL_THREADS / 32) + warp : warp - p * G;
+    const int cta = kC ? blockIdx.x / nC : blockIdx.x;
+    const int h = cta % H;
+    const int sl = (cta / H) * WP + p;             // the pair's query slot
+    // the slots this CTA holds: all the pair's, or in the cluster instance
+    // its own 256 lanes' (ST from j to j + 1; ops/flank.py:flank_slot_index)
+    const int ST = kC ? FL_THREADS : S;
+    const int MT = kC ? Mpad / nC : Mpad;
+    float *sX = smem + 8 * MT;                     // [2][WP][G][FL_XS]
+    float *sW = sX + 2 * WP * G * FL_XS + p * G * WS;   // [G][WS]
     {
-        const float4 *src =
-            reinterpret_cast<const float4 *>(tr_t + (size_t)h * 8 * Mpad);
+        const float4 *src = reinterpret_cast<const float4 *>(
+            tr_t + (size_t)h * 8 * Mpad + (size_t)rank * 8 * MT);
         float4 *dst = reinterpret_cast<float4 *>(smem);
-        for (int t = threadIdx.x; t < 2 * Mpad; t += blockDim.x) dst[t] = src[t];
+        for (int t = threadIdx.x; t < 2 * MT; t += blockDim.x) dst[t] = src[t];
         __syncthreads();                    // once per CTA, not per row
+        if constexpr (kC) cluster_meet();   // every CTA started: DSMEM is live
     }
     const int q = slots[sl];
     if (q < 0) return;                      // the pair's warps leave together
@@ -121,13 +160,14 @@ __global__ void __launch_bounds__(FL_THREADS)
     const int L = qlens[q];
     const int32_t *cq = codes + (size_t)q * Lstride;
     const int v = g * 32 + lane;            // the lane's chunk of states
-    const float *tl = T + v;
-    const float *el = em_t + (size_t)h * K * Mpad + v;
+    const int vl = kC ? warp * 32 + lane : v;   // its slot in this CTA
+    const float *tl = T + vl;
+    const float *el = em_t + (size_t)h * K * Mpad + (size_t)rank * MT + vl;
     const bool lead = g == 0;               // writes the pair's outputs
     const size_t rbase = ((size_t)q * H + h) * W;  // the pair's output row
     float *FS = fspec + ((size_t)sl * H + h) * (size_t)(FL_SPEC * (Lstride + 2));
     const int bar = 1 + p;
-#define TR(r, j) tl[(r) * Mpad + (j) * S]
+#define TR(r, j) tl[(r) * MT + (j) * ST]
 #define XB(ph) (sX + (((ph) & 1) * WP + p) * G * FL_XS)
     int ph = 0;                             // meetings so far (buffer parity)
 
@@ -178,7 +218,16 @@ __global__ void __launch_bounds__(FL_THREADS)
         for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(FULL_MASK, se, o);
         const float aw = __shfl_sync(FULL_MASK, xa, 31);
         const float dl = __shfl_sync(FULL_MASK, ea * Plast, 31);
-        if (lane == 0) {
+        if constexpr (kC) {
+            float *w = sW + g * WS;
+            put_all_uniform(w + 0, aw, nC);
+            put_all_uniform(w + 1, se, nC);
+            put_all_uniform(w + 2, dl, nC);
+            put_all(w + 4, TR(T_MM, NPL - 1), 31, nC);
+            put_all(w + 5, TR(T_IM, NPL - 1), 31, nC);
+            put_all(w + 6, TR(T_DM, NPL - 1), 31, nC);
+            put_all(w + 7, TR(T_DD, NPL - 1), 31, nC);
+        } else if (lane == 0) {
             sW[g * FL_WS + 0] = aw;
             sW[g * FL_WS + 1] = se;
             sW[g * FL_WS + 2] = dl;
@@ -197,7 +246,7 @@ __global__ void __launch_bounds__(FL_THREADS)
         float b = 0.f, sM = 0.f, sD = 0.f, mx = 0.f, blast = 0.f, up = uin;
 #pragma unroll
         for (int j = 0; j < NPL; ++j) {
-            const float Mr = (up * inv + B * TR(T_BM, j)) * e[j * S];
+            const float Mr = (up * inv + B * TR(T_BM, j)) * e[j * ST];
             const float Ir = (row.M(j) * TR(T_MI, j) + row.I(j) * TR(T_II, j)) * inv;
             up = row.U(j);
             sD += b;
@@ -225,25 +274,39 @@ __global__ void __launch_bounds__(FL_THREADS)
         float Din = 0.f, uB = 0.f;
         if (G > 1) {
             float *xr = XB(ph++);
-            if (lane == 31) {
-                float *x = xr + g * FL_XS;
-                x[0] = bi;                  // the D leaving the warp
-                x[1] = E;
-                x[2] = mx;
-                x[3] = row.M(NPL - 1);
-                x[4] = row.I(NPL - 1);
-                x[5] = blast + Plast * eb;  // D at the warp's last state
+            float *x = xr + g * FL_XS;
+            if constexpr (kC) {
+                put_all(x + 0, bi, 31, nC);
+                put_all_uniform(x + 1, E, nC);
+                put_all_uniform(x + 2, mx, nC);
+                put_all(x + 3, row.M(NPL - 1), 31, nC);
+                put_all(x + 4, row.I(NPL - 1), 31, nC);
+                put_all(x + 5, blast + Plast * eb, 31, nC);
+                cluster_meet();             // the one meeting of the row
+            } else {
+                if (lane == 31) {
+                    x[0] = bi;              // the D leaving the warp
+                    x[1] = E;
+                    x[2] = mx;
+                    x[3] = row.M(NPL - 1);
+                    x[4] = row.I(NPL - 1);
+                    x[5] = blast + Plast * eb;   // D at the warp's last state
+                }
+                pair_barrier(bar, S);       // the one meeting of the row
             }
-            pair_barrier(bar, S);           // the one meeting of the row
             float D = 0.f, Et = 0.f, mt = 0.f;
             for (int gg = 0; gg < G; ++gg) {
                 const float *xg = xr + gg * FL_XS;
-                const float *wg = sW + gg * FL_WS;
+                const float *wg = sW + gg * WS;
                 if (gg == g) Din = D;
                 if (gg == g - 1) {          // the outflow of its last state
-                    const int sk = (NPL - 1) * S + gg * 32 + 31;
-                    uB = xg[3] * T[T_MM * Mpad + sk] + xg[4] * T[T_IM * Mpad + sk] +
-                         (xg[5] + wg[2] * D) * T[T_DM * Mpad + sk];
+                    if constexpr (kC) {
+                        uB = xg[3] * wg[4] + xg[4] * wg[5] + (xg[5] + wg[2] * D) * wg[6];
+                    } else {
+                        const int sk = (NPL - 1) * S + gg * 32 + 31;
+                        uB = xg[3] * T[T_MM * Mpad + sk] + xg[4] * T[T_IM * Mpad + sk] +
+                             (xg[5] + wg[2] * D) * T[T_DM * Mpad + sk];
+                    }
                 }
                 Et += xg[1] + D * wg[1];
                 mt = fmaxf(mt, xg[2]);
@@ -307,8 +370,15 @@ __global__ void __launch_bounds__(FL_THREADS)
     // last but one: the sensitivity of D_c there to X
     float dX = __shfl_down_sync(FULL_MASK, ab, 1);
     if (lane == 31) dX = 0.f;
-    if (G > 1 && lane == 0) sW[g * FL_WS + 3] = ab;   // visible at the first meeting
-    const float d1r = v + 1 < S ? d1_t[(size_t)h * Mpad + v + 1] : 0.f;
+    // visible at the first meeting; D_1 at the next lane's first state
+    float d1r;
+    if constexpr (kC) {
+        put_all(sW + g * WS + 3, ab, 0, nC);
+        d1r = d1_t[(size_t)h * S + v];      // ops/flank.py:flank_tables
+    } else {
+        if (G > 1 && lane == 0) sW[g * FL_WS + 3] = ab;
+        d1r = v + 1 < S ? d1_t[(size_t)h * Mpad + v + 1] : 0.f;
+    }
 
     // ---- terminal row L: D_L = E_L D_1, M_L[k] = E_L + D_L[k+1] t_md[k],
     // M_L[0] = 0, I_L = 0 (flank_device.py:155-162)
@@ -375,7 +445,7 @@ __global__ void __launch_bounds__(FL_THREADS)
         float Bu = 0.f, bl = 0.f, mn = mr;
 #pragma unroll
         for (int j = NPL - 1; j >= 0; --j) {
-            const float mj = row.M(j) * e[j * S];
+            const float mj = row.M(j) * e[j * ST];
             Bu += TR(T_BM, j) * mj;
             bl = mn * TR(T_DM, j) + TR(T_DD, j) * bl;
             mn = mj;
@@ -396,14 +466,22 @@ __global__ void __launch_bounds__(FL_THREADS)
         float Dcin = lane < 31 ? ebm : 0.f, min_ = mr;
         if (G > 1) {
             float *xr = XB(ph++);
-            if (lane == 0) {
-                float *x = xr + g * FL_XS;
-                x[0] = mxa;
-                x[1] = Bva;
-                x[2] = bi;                  // D_c at the warp's first state
-                x[3] = m0;                  // mne there
+            float *x = xr + g * FL_XS;
+            if constexpr (kC) {
+                put_all_uniform(x + 0, mxa, nC);
+                put_all_uniform(x + 1, Bva, nC);
+                put_all(x + 2, bi, 0, nC);
+                put_all(x + 3, m0, 0, nC);
+                cluster_meet();             // the one meeting of the row
+            } else {
+                if (lane == 0) {
+                    x[0] = mxa;
+                    x[1] = Bva;
+                    x[2] = bi;              // D_c at the warp's first state
+                    x[3] = m0;              // mne there
+                }
+                pair_barrier(bar, S);       // the one meeting of the row
             }
-            pair_barrier(bar, S);           // the one meeting of the row
             mxa = 0.f;
             Bva = 0.f;
             for (int gg = 0; gg < G; ++gg) {
@@ -413,13 +491,23 @@ __global__ void __launch_bounds__(FL_THREADS)
             // D_c and mne at the first state of warp g + 1, right to left
             float Dn = 0.f, mnx = 0.f;
             for (int gg = G - 1; gg > g; --gg) {
-                const int sk = (NPL - 1) * S + gg * 32 + 31;
-                const float X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
-                Dn = xr[gg * FL_XS + 2] + sW[gg * FL_WS + 3] * X;
+                float X;
+                if constexpr (kC) {
+                    X = sW[gg * WS + 6] * mnx + sW[gg * WS + 7] * Dn;
+                } else {
+                    const int sk = (NPL - 1) * S + gg * 32 + 31;
+                    X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
+                }
+                Dn = xr[gg * FL_XS + 2] + sW[gg * WS + 3] * X;
                 mnx = xr[gg * FL_XS + 3];
             }
-            const int sk = (NPL - 1) * S + g * 32 + 31;
-            const float X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
+            float X;
+            if constexpr (kC) {
+                X = sW[g * WS + 6] * mnx + sW[g * WS + 7] * Dn;
+            } else {
+                const int sk = (NPL - 1) * S + g * 32 + 31;
+                X = T[T_DM * Mpad + sk] * mnx + T[T_DD * Mpad + sk] * Dn;
+            }
             Dcin = lane < 31 ? ebm + dX * X : Dn;
             if (lane == 31) min_ = mnx;
         }
@@ -454,7 +542,7 @@ __global__ void __launch_bounds__(FL_THREADS)
                              Dn * TR(T_MD, j);
             const float Ii = mnext * TR(T_IM, j) + bis * TR(T_II, j);
             Dn = mnext * TR(T_DM, j) + Ei + TR(T_DD, j) * Dn;
-            mnext = row.M(j) * e[j * S] * iv;
+            mnext = row.M(j) * e[j * ST] * iv;
             row.M(j) = Mi;
             row.I(j) = Ii;
             mx = fmaxf(mx, Mi);
@@ -466,6 +554,7 @@ __global__ void __launch_bounds__(FL_THREADS)
     }
 #undef TR
 #undef XB
+    if constexpr (kC) cluster_meet();       // no CTA leaves while others write to it
 }
 
 template <int NPL>
@@ -479,12 +568,72 @@ static int launch_warp(const float *em_t, const float *tr_t, const float *d1_t,
     if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
     const size_t smem = sizeof(float) * ((size_t)8 * Mpad + (size_t)2 * WP * G * FL_XS +
                                          (size_t)WP * G * FL_WS);
-    cudaError_t err = set_smem((const void *)flank_warp_kernel<NPL>, smem);
+    cudaError_t err = set_smem((const void *)flank_warp_kernel<NPL, false>, smem);
     if (err != cudaSuccess) return (int)err;
-    flank_warp_kernel<NPL><<<(unsigned)((size_t)n_groups * H), threads, smem, st>>>(
+    flank_warp_kernel<NPL, false><<<(unsigned)((size_t)n_groups * H), threads, smem, st>>>(
         em_t, tr_t, d1_t, codes, qlens, slots, fwd, ppB, ppE, mocc, fspec, H, K,
-        Lstride, W, G, Mpad);
+        Lstride, W, G, Mpad, 1);
     return (int)cudaGetLastError();
+}
+
+static size_t cluster_smem(int G, int MT) {
+    return sizeof(float) * ((size_t)8 * MT + (size_t)2 * G * FL_XS + (size_t)G * FL_WS_C);
+}
+
+template <int NPL>
+static int launch_cluster_flank(const float *em_t, const float *tr_t, const float *d1_t,
+                                const int32_t *codes, const int32_t *qlens,
+                                const int32_t *slots, float *fwd, float *ppB, float *ppE,
+                                float *mocc, float *fspec, int H, int n_groups, int K,
+                                int Lstride, int W, int C, int Mpad, cudaStream_t st) {
+    const int G = 8 * C;
+    const size_t smem = cluster_smem(G, Mpad / C);
+    cudaError_t err = set_smem((const void *)flank_warp_kernel<NPL, true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_cluster(flank_warp_kernel<NPL, true>, n_groups * H, C, FL_THREADS, smem, st,
+                         em_t, tr_t, d1_t, codes, qlens, slots, fwd, ppB, ppE, mocc, fspec,
+                         H, K, Lstride, W, G, Mpad, C);
+    return (int)err;
+}
+
+// The cluster instance: one pair per cluster of C CTAs of 8 warps (G = 8 C
+// warps a pair, the slot layout of each CTA's 256 lanes, its own slice of
+// the tables: ops/flank.py:flank_tables), npl in {8, 16, 24}; n_groups
+// query slots (one pair a slot) times the H models. Refused (an error
+// code) when no such cluster fits on the card at once.
+extern "C" int witch_flank_cluster(const float *em_t, const float *tr_t,
+                                   const float *d1_t, const int32_t *codes,
+                                   const int32_t *qlens, const int32_t *slots,
+                                   float *fwd, float *ppB, float *ppE, float *mocc,
+                                   float *fspec, int H, int n_groups, int K,
+                                   int Lstride, int W, int C, int npl, int Mpad,
+                                   void *stream) {
+    if (H <= 0 || n_groups <= 0) return 0;
+    if (C < 2 || C > 8 || Mpad != 32 * 8 * C * npl) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define FL_ARGS em_t, tr_t, d1_t, codes, qlens, slots, fwd, ppB, ppE, mocc, \
+                fspec, H, n_groups, K, Lstride, W, C, Mpad, st
+    switch (npl) {
+    case 8: return launch_cluster_flank<8>(FL_ARGS);
+    case 16: return launch_cluster_flank<16>(FL_ARGS);
+    case 24: return launch_cluster_flank<24>(FL_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef FL_ARGS
+}
+
+// Clusters of the cluster instance (C CTAs, npl states a lane) the card
+// holds at once, or -error.
+extern "C" int witch_flank_cluster_active(int C, int npl) {
+    const size_t smem = cluster_smem(8 * C, 256 * npl);
+    const void *fn = npl == 8    ? (const void *)flank_warp_kernel<8, true>
+                     : npl == 16 ? (const void *)flank_warp_kernel<16, true>
+                                 : (const void *)flank_warp_kernel<24, true>;
+    cudaError_t err = set_smem(fn, smem);
+    if (err != cudaSuccess) return -(int)err;
+    return npl == 8    ? max_active_clusters(flank_warp_kernel<8, true>, C, FL_THREADS, smem)
+           : npl == 16 ? max_active_clusters(flank_warp_kernel<16, true>, C, FL_THREADS, smem)
+                       : max_active_clusters(flank_warp_kernel<24, true>, C, FL_THREADS, smem);
 }
 
 // The warp-per-pair kernel on n_groups groups of query slots (slots

@@ -41,7 +41,8 @@
 //   its original [q, h].
 // Layouts, chosen by width at launch (ops/forward.py:fwd_layout):
 //   0  row in registers (npl > 0), transitions in shared memory: every
-//      width whose transitions fit there (Mpad up to ~7,000)
+//      width whose transitions fit there (Mpad up to 6,400: bank widths
+//      up to Mp 6,304; from 6,432 layout 1)
 //   1  row in shared memory (npl = 0 here, run time), one pair of G = 8
 //      warps per CTA, transitions in device memory: wider models, up to
 //      the 16,384-state cap.

@@ -1,13 +1,16 @@
 // Fused unihit posterior decoding + optimal-accuracy (OA) alignment +
-// traceback per (model, query) pair, in two kernels chosen by the bank
-// width alone (ops/oa.py:oa_layout): a warp-per-pair kernel for Hopper
-// (oa_warp_kernel, Mp up to 4,096) and the first version, one CTA per
-// pair (oa_kernel, wider models up to the 16,384-state cap).
+// traceback per (model, query) pair, by one kernel design for Hopper in
+// two instances chosen by the bank width alone (ops/oa.py:oa_layout):
+// warp-per-pair (oa_warp_kernel<NPL, false>, layout 0, Mp up to 4,096)
+// and over a thread-block cluster (oa_warp_kernel<NPL, true>, layout 1,
+// wider models up to the 16,384-state cap). The first version, one CTA
+// per pair (oa_kernel), is kept for timing (first_version=True); no path
+// takes it.
 //
 // Replaces: witch_tpu/ops/pallas_oa.py:_oa_kernel (the TPU kernel
 // reached from oa_columns_device).
 //
-// Both compute, per pair, what the plain version (ops/oa.py:oa_ref)
+// All compute, per pair, what the plain version (ops/oa.py:oa_ref)
 // computes:
 //   pass A  Backward from the terminal row L down to row 0 with exact
 //           power-of-two rescaling; rows 1..L (bM, bI and the bN, bC,
@@ -83,14 +86,58 @@
 //   the wrapper cuts the launches by the scratch they need
 //   (ops/plan.py:plan_launches), pairs of one model per CTA, longest
 //   first.
+//
+// Cluster instance (layout 1, above Mp 4,096): one pair of G = 8 C warps
+// on a cluster of C CTAs of 8 warps (C <= 8, the portable limit; 8 states
+// a lane up to Mp 16,384, as the 16-state instance spills, 16 above: C 5
+// at Mp 16,416). Each CTA holds its 256 lanes' slice of the transitions
+// (ops/oa.py:oa_tables with C slices, 8 x 256 npl floats) in its shared
+// memory, so no CTA needs the whole model; emissions and the stored rows
+// stay in k order and per pair, and the traceback kernel is the same.
+// The row's meetings (one in pass A, two in pass B) go through
+// distributed shared memory: each warp pushes its record (the chain's
+// affine carry, the sums, the max, the E argmax fields) into the same
+// slot of every CTA's shared memory (lane r < C stores rank r's copy,
+// cluster.cuh:put_all), then the whole cluster crosses one barrier
+// (barrier.cluster arrive with release, wait with acquire) in place of
+// the named pair barrier, and every CTA reads all G records from its own
+// shared memory in the same fixed order, so the E argmax merge (first
+// index, tie count, second best) breaks ties as align_ref.oa_trace does
+// in every CTA alike. Pass A's records are double-buffered; pass B's two
+// meetings alternate between two buffers, so one barrier serves each
+// meeting. The loop-invariant multipliers go out once the same way, with
+// each warp's last-state t_mm and t_im, which the warp above reads and
+// another CTA may hold. The specials stored in pass A are read by every
+// CTA, so pass A ends with a device-scope fence before the cluster
+// barrier. A meeting costs ~0.4-0.5 us alone and 1-2 us with the
+// exchange at these sizes (phase 2h of chip_smoke.py, ops/cluster.py),
+// so a DP row costs a few us; the first version's one CTA a pair crossed
+// a dozen block barriers a row over 256-thread chunk loops, with its
+// scratch sized by the longest query and launches of 8 pairs.
 
 #include <float.h>
 #include <math.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 static constexpr double NEGD = -(double)FLT_MAX;
 static constexpr float LN2F = 0.693147182464599609375f;   // f32(ln 2)
+
+// The total score Z (nats) and a row's posterior scale exp(e ln 2 - Z)
+// from the exponent ledgers, rounded as the plain version rounds them
+// (the product, then the sum; no fused multiply-add). The ledgers reach
+// thousands over thousands of rows, where half an ulp of the product is
+// ~1e-4: a contracted e ln 2 - Z then moved every posterior of a row by
+// a relative ~1e-4 against plain, and the margins of 3,000-row pairs by
+// more than 1e-4 (chip_smoke.py phase 4wo).
+static __device__ __forceinline__ float ledger_z(float bN, float bled) {
+    return __fadd_rn(logf(fmaxf(bN, SCALE_FLOOR)), __fmul_rn(bled, LN2F));
+}
+
+static __device__ __forceinline__ float ledger_scale(float e, float Zlog) {
+    return expf(__fsub_rn(__fmul_rn(e, LN2F), Zlog));
+}
 // bytes of working rows per model state: oM oI oD (f64) + fM fI fD (f32)
 static constexpr size_t OA_ROW_BYTES = 3 * (sizeof(double) + sizeof(float));
 
@@ -224,7 +271,7 @@ __global__ void oa_kernel(const float *__restrict__ em,
             BS[i * 3 + 2] = bled;
         }
     }
-    const float Zlog = logf(fmaxf(bN, SCALE_FLOOR)) + bled * LN2F;
+    const float Zlog = ledger_z(bN, bled);
     __syncthreads();   // BS visible to every thread
 
     // ---------------- pass B: Forward + OA fill -----------------------
@@ -259,8 +306,8 @@ __global__ void oa_kernel(const float *__restrict__ em,
 
         const float bN_i = BS[i * 3 + 0], bC_i = BS[i * 3 + 1],
                     bled_i = BS[i * 3 + 2];
-        const float sc = expf((fled + bled_i) * LN2F - Zlog);
-        const float scN = expf((fled0 + bled_i) * LN2F - Zlog);
+        const float sc = ledger_scale(fled + bled_i, Zlog);
+        const float scN = ledger_scale(fled0 + bled_i, Zlog);
         const float ppN = fN0 * ploop * bN_i * scN;
         const float ppC = fC0 * ploop * bC_i * scN;
         const float *Ri = BR + (size_t)i * 2 * Mp;
@@ -401,6 +448,8 @@ __global__ void oa_kernel(const float *__restrict__ em,
 #define OA_XS 8        // floats per warp in a Backward or Forward meeting
 #define OA_XD 8        // doubles per warp in the OA part of a meeting
 #define OA_WS 8        // loop-invariant floats per warp
+#define OA_WS_C 12     // the same in the cluster instance (with the last
+                       // state's t_mm and t_im, which another CTA may hold)
 
 // Byte of the pointer plane for (row, state k): a lane's npl consecutive
 // states go out as one word, so the plane is row-major in k. Mirrored by
@@ -501,7 +550,7 @@ static __device__ __forceinline__ void ld_row(float (&d)[NPL], const float4 *p,
     }
 }
 
-template <int NPL>
+template <int NPL, bool kC>
 __global__ void __launch_bounds__(OA_THREADS)
     oa_warp_kernel(const float *__restrict__ em_t, const float *__restrict__ tr_t,
                    const int32_t *__restrict__ model_of,
@@ -514,26 +563,36 @@ __global__ void __launch_bounds__(OA_THREADS)
                    const int64_t *__restrict__ roff, float *__restrict__ brows,
                    float *__restrict__ bspec, uint8_t *__restrict__ ptr,
                    int32_t *__restrict__ rowk, uint8_t *__restrict__ rowf,
-                   float *__restrict__ stat, int K, int G, int Mpad) {
+                   float *__restrict__ stat, int K, int G, int Mpad, int nC) {
     extern __shared__ float smem[];
+    constexpr int WS = kC ? OA_WS_C : OA_WS;
     const int S = G * 32;                  // lanes of a pair
-    const int WP = blockDim.x / S;         // pairs in this CTA
+    const int WP = kC ? 1 : blockDim.x / S;   // pairs in this CTA (cluster)
     const int WG = WP * G;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int p = warp / G, g = warp - p * G;
-    const int pr = cta_pair[(size_t)blockIdx.x * WP + p];
+    const int rank = kC ? cluster_rank() : 0;
+    const int p = kC ? 0 : warp / G;
+    const int g = kC ? rank * (OA_THREADS / 32) + warp : warp - p * G;
+    const int cta = kC ? blockIdx.x / nC : blockIdx.x;   // the plan's CTA
+    const int pr = cta_pair[(size_t)cta * WP + p];
     // the plan fills a CTA's first slot and gives all its slots one model
-    const int h = model_of[cta_pair[(size_t)blockIdx.x * WP]];
-    float *sXB = smem + 8 * Mpad;          // pass A: [2][WP][G][OA_XS]
-    float *sW = sXB + 2 * WG * OA_XS;      // [WP][G][OA_WS]
-    float *sXF = sW + WG * OA_WS;          // pass B meeting 1: [WP][G][OA_XS]
+    const int h = model_of[cta_pair[(size_t)cta * WP]];
+    // transitions of the lanes this CTA holds: all the pair's, or in the
+    // cluster instance its own 256 lanes' (oa_tables with C slices)
+    const int SB = kC ? OA_THREADS : S;
+    const int MT = kC ? Mpad / nC : Mpad;
+    float *sXB = smem + 8 * MT;            // pass A: [2][WP][G][OA_XS]
+    float *sW = sXB + 2 * WG * OA_XS;      // [WP][G][WS]
+    float *sXF = sW + WG * WS;             // pass B meeting 1: [WP][G][OA_XS]
     double *sD1 = (double *)(sXF + WG * OA_XS);   // [WP][G][OA_XD]
     double *sD2 = sD1 + WG * OA_XD;               // meeting 2: [WP][G][4]
     {
-        const float4 *src = reinterpret_cast<const float4 *>(tr_t + (size_t)h * 8 * Mpad);
+        const float4 *src = reinterpret_cast<const float4 *>(
+            tr_t + (size_t)h * 8 * Mpad + (size_t)rank * 8 * MT);
         float4 *dst = reinterpret_cast<float4 *>(smem);
-        for (int t = threadIdx.x; t < 2 * Mpad; t += blockDim.x) dst[t] = src[t];
+        for (int t = threadIdx.x; t < 2 * MT; t += blockDim.x) dst[t] = src[t];
         __syncthreads();                    // once per CTA, not per row
+        if constexpr (kC) cluster_meet();   // every CTA started: DSMEM is live
     }
     if (pr < 0) return;                     // the pair's warps leave together
     const int Mm = ms[pr];
@@ -547,7 +606,7 @@ __global__ void __launch_bounds__(OA_THREADS)
     // transitions in shared memory: float4 (r * NPL/4 + hh) * S + slot holds
     // states slot * NPL + 4 hh + (0..3); emissions and the stored rows in
     // k order, a lane's states NPL / 4 consecutive float4s
-    const float4 *T4 = reinterpret_cast<const float4 *>(smem) + slot0;
+    const float4 *T4 = reinterpret_cast<const float4 *>(smem) + (kC ? warp * 32 + lane : slot0);
     const float4 *em4 = reinterpret_cast<const float4 *>(em_t) + (size_t)h * K * MQ + (kb >> 2);
     const int64_t r0 = roff[pr];
     float4 *BR4 = reinterpret_cast<float4 *>(brows) + (size_t)r0 * 2 * MQ + (kb >> 2);
@@ -555,9 +614,9 @@ __global__ void __launch_bounds__(OA_THREADS)
     uint8_t *PT = ptr + (size_t)r0 * Mpad;
     int32_t *RK = rowk + r0;
     uint8_t *RF = rowf + r0;
-    float *sWp = sW + p * G * OA_WS;
+    float *sWp = sW + p * G * WS;
     const int bar = 1 + p, nbar = S;
-#define Q(r, hh) T4[((r) * (NPL / 4) + (hh)) * S + zr]
+#define Q(r, hh) T4[((r) * (NPL / 4) + (hh)) * SB + zr]
 #define TLAST(r, sl) smem[(((r) * (NPL / 4) + NPL / 4 - 1) * S + (sl)) * 4 + 3]
 #define XBUF(ph) (sXB + (((ph) & 1) * WP + p) * G * OA_XS)
     int zr = 0;                            // see fresh_zero
@@ -567,8 +626,8 @@ __global__ void __launch_bounds__(OA_THREADS)
     // Forward: within the lane D at its j-th state is Dloc_j + P_j c, c the
     // chain value entering the lane, P_j = prod_{t < j} t_dd.
     float tdd0[NPL], tdm0[NPL];
-    ld_row<NPL>(tdd0, T4 + T_DD * (NPL / 4) * S, S);
-    ld_row<NPL>(tdm0, T4 + T_DM * (NPL / 4) * S, S);
+    ld_row<NPL>(tdd0, T4 + T_DD * (NPL / 4) * SB, SB);
+    ld_row<NPL>(tdm0, T4 + T_DM * (NPL / 4) * SB, SB);
     float Pj = 1.f, SP = 0.f, Plast = 1.f;
 #pragma unroll
     for (int j = 0; j < NPL; ++j) {
@@ -620,19 +679,34 @@ __global__ void __launch_bounds__(OA_THREADS)
         for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(FULL_MASK, se, o);
         const float aw = __shfl_sync(FULL_MASK, xa, 31);
         const float dl1 = __shfl_sync(FULL_MASK, ea * Plast, 31);
-        float *w = sWp + g * OA_WS;
-        if (lane == 0) {
-            w[0] = aw;                       // the warp's Forward multiplier
-            w[1] = se;
-            w[2] = dl1;
-            w[3] = xb;                       // Z multiplier of D at the first state
-            w[4] = bci;                      // its bE part
+        float *w = sWp + g * WS;
+        if constexpr (kC) {
+            // into every CTA of the cluster, with the last state's t_mm and
+            // t_im (meeting 1 of pass B reads the warp below's)
+            put_all_uniform(w + 0, aw, nC);
+            put_all_uniform(w + 1, se, nC);
+            put_all_uniform(w + 2, dl1, nC);
+            put_all(w + 3, xb, 0, nC);
+            put_all(w + 4, bci, 0, nC);
+            put_all(w + 5, tdm0[NPL - 1], 31, nC);
+            put_all(w + 6, tdd0[NPL - 1], 31, nC);
+            put_all(w + 7, comp(Q(T_MM, NPL / 4 - 1), 3), 31, nC);
+            put_all(w + 8, comp(Q(T_IM, NPL / 4 - 1), 3), 31, nC);
+            cluster_meet();
+        } else {
+            if (lane == 0) {
+                w[0] = aw;                   // the warp's Forward multiplier
+                w[1] = se;
+                w[2] = dl1;
+                w[3] = xb;                   // Z multiplier of D at the first state
+                w[4] = bci;                  // its bE part
+            }
+            if (lane == 31) {
+                w[5] = tdm0[NPL - 1];
+                w[6] = tdd0[NPL - 1];
+            }
+            pair_barrier(bar, nbar);
         }
-        if (lane == 31) {
-            w[5] = tdm0[NPL - 1];
-            w[6] = tdd0[NPL - 1];
-        }
-        pair_barrier(bar, nbar);
     }
 
     // ---- pass A: Backward, one row behind its scale, rows 1..L stored ----
@@ -694,14 +768,22 @@ __global__ void __launch_bounds__(OA_THREADS)
         float *xr = nullptr;
         if (G > 1) {
             xr = XBUF(ph++);
-            if (lane == 0) {
-                float *xx = xr + g * OA_XS;
-                xx[0] = mxa;
-                xx[1] = Bva;
-                xx[2] = bi;                  // the warp's chain, mne part
-                xx[3] = m0;                  // mne at the warp's first state
+            float *xx = xr + g * OA_XS;
+            if constexpr (kC) {
+                put_all_uniform(xx + 0, mxa, nC);
+                put_all_uniform(xx + 1, Bva, nC);
+                put_all(xx + 2, bi, 0, nC);
+                put_all(xx + 3, m0, 0, nC);
+                cluster_meet();              // the one meeting of the row
+            } else {
+                if (lane == 0) {
+                    xx[0] = mxa;
+                    xx[1] = Bva;
+                    xx[2] = bi;              // the warp's chain, mne part
+                    xx[3] = m0;              // mne at the warp's first state
+                }
+                pair_barrier(bar, nbar);     // the one meeting of the row
             }
-            pair_barrier(bar, nbar);         // the one meeting of the row
             mxa = 0.f;
             Bva = 0.f;
             for (int gg = 0; gg < G; ++gg) {
@@ -741,7 +823,7 @@ __global__ void __launch_bounds__(OA_THREADS)
         float Zg = 0.f, Dn1 = 0.f, mn1 = 0.f;
         if (G > 1 && newrow) {
             for (int gg = G - 1; gg >= g; --gg) {
-                const float *w = sWp + gg * OA_WS;
+                const float *w = sWp + gg * WS;
                 Zg = mn1 * w[5] + w[6] * Dn1;
                 if (gg == g) break;
                 const float *xg = xr + gg * OA_XS;
@@ -787,11 +869,16 @@ __global__ void __launch_bounds__(OA_THREADS)
         bNu = bNn;
         bCu = bCn;
     }
-    const float Zlog = logf(fmaxf(bN, SCALE_FLOOR)) + bled * LN2F;
+    const float Zlog = ledger_z(bN, bled);
     // the specials of every row visible to the pair's warps
-    __threadfence_block();
-    if (G > 1) pair_barrier(bar, nbar);
-    else __syncwarp();
+    if constexpr (kC) {
+        __threadfence();                     // other CTAs' SMs read them
+        cluster_meet();
+    } else {
+        __threadfence_block();
+        if (G > 1) pair_barrier(bar, nbar);
+        else __syncwarp();
+    }
 
     // ---- pass B: Forward, posteriors and the OA fill ----
     double oM[NPL], oI[NPL], oD[NPL];
@@ -912,31 +999,57 @@ __global__ void __launch_bounds__(OA_THREADS)
         }
         float Din = 0.f, uB = 0.f;
         if (G > 1) {
-            if (lane == 31) {
+            if constexpr (kC) {
                 float *xx = xf + g * OA_XS;
-                xx[0] = bi;
-                xx[1] = E;
-                xx[2] = mx;
-                xx[3] = row.M(NPL - 1);
-                xx[4] = row.I(NPL - 1);
-                xx[5] = blast + Plast * ebf;
+                put_all(xx + 0, bi, 31, nC);
+                put_all_uniform(xx + 1, E, nC);
+                put_all_uniform(xx + 2, mx, nC);
+                put_all(xx + 3, row.M(NPL - 1), 31, nC);
+                put_all(xx + 4, row.I(NPL - 1), 31, nC);
+                put_all(xx + 5, blast + Plast * ebf, 31, nC);
                 double *v = xd1 + g * OA_XD;
-                v[0] = oM[NPL - 1];
-                v[1] = oI[NPL - 1];
-                v[2] = oD[NPL - 1];
+                put_all(v + 0, oM[NPL - 1], 31, nC);
+                put_all(v + 1, oI[NPL - 1], 31, nC);
+                put_all(v + 2, oD[NPL - 1], 31, nC);
+                if (i > 1) {                 // ebp is the same in every lane
+                    put_all_uniform(v + 3, ebp.r, nC);
+                    put_all_uniform(v + 4, ebp.s2, nC);
+                    put_all_uniform(v + 5, ebp.mxk, nC);
+                    put_all_uniform(v + 6, (double)ebp.k, nC);
+                    put_all_uniform(v + 7, (double)ebp.n, nC);
+                }
+                cluster_meet();              // meeting 1 of the row
+            } else {
+                if (lane == 31) {
+                    float *xx = xf + g * OA_XS;
+                    xx[0] = bi;
+                    xx[1] = E;
+                    xx[2] = mx;
+                    xx[3] = row.M(NPL - 1);
+                    xx[4] = row.I(NPL - 1);
+                    xx[5] = blast + Plast * ebf;
+                    double *v = xd1 + g * OA_XD;
+                    v[0] = oM[NPL - 1];
+                    v[1] = oI[NPL - 1];
+                    v[2] = oD[NPL - 1];
+                }
+                if (lane == 0 && i > 1) XD_EBEST(xd1 + g * OA_XD, ebp);
+                pair_barrier(bar, nbar);     // meeting 1 of the row
             }
-            if (lane == 0 && i > 1) XD_EBEST(xd1 + g * OA_XD, ebp);
-            pair_barrier(bar, nbar);         // meeting 1 of the row
             float D = 0.f, Et = 0.f, mt = 0.f;
             for (int gg = 0; gg < G; ++gg) {
                 const float *xg = xf + gg * OA_XS;
-                const float *wg = sWp + gg * OA_WS;
+                const float *wg = sWp + gg * WS;
                 if (gg == g) Din = D;
                 if (gg == g - 1) {
                     const float Dl = xg[5] + wg[2] * D;
-                    const int sl = gg * 32 + 31;
-                    uB = xg[3] * TLAST(T_MM, sl) + xg[4] * TLAST(T_IM, sl) +
-                         Dl * TLAST(T_DM, sl);
+                    if constexpr (kC) {
+                        uB = xg[3] * wg[7] + xg[4] * wg[8] + Dl * wg[5];
+                    } else {
+                        const int sl = gg * 32 + 31;
+                        uB = xg[3] * TLAST(T_MM, sl) + xg[4] * TLAST(T_IM, sl) +
+                             Dl * TLAST(T_DM, sl);
+                    }
                 }
                 Et += xg[1] + D * wg[1];
                 mt = fmaxf(mt, xg[2]);
@@ -969,8 +1082,8 @@ __global__ void __launch_bounds__(OA_THREADS)
         B = Bn * iv;
         C = Cn * iv;
         fled = fled0 + kexp;
-        const float sc = expf((fled + bled_i) * LN2F - Zlog);
-        const float scN = expf((fled0 + bled_i) * LN2F - Zlog);
+        const float sc = ledger_scale(fled + bled_i, Zlog);
+        const float scN = ledger_scale(fled0 + bled_i, Zlog);
         const float ppN = N0 * ploop * bN_i * scN;
         const float ppC = C0 * ploop * bC_i * scN;
 
@@ -1028,13 +1141,20 @@ __global__ void __launch_bounds__(OA_THREADS)
         if (lane == 0) run = NEGD;
         double enter = NEGD, pMx = NEGD, pDx = NEGD;   // M and D at k-1 of the lane's first state
         if (G > 1) {
-            if (lane == 31) {
-                double *v = xd2 + g * 4;
-                v[0] = xs;                   // the warp's max
-                v[1] = fmax(run, lmx0);      // the same without its last state
-                v[2] = oM[NPL - 1];          // M at its last state
+            double *v = xd2 + g * 4;
+            if constexpr (kC) {
+                put_all(v + 0, xs, 31, nC);
+                put_all(v + 1, fmax(run, lmx0), 31, nC);
+                put_all(v + 2, oM[NPL - 1], 31, nC);
+                cluster_meet();              // meeting 2 of the row
+            } else {
+                if (lane == 31) {
+                    v[0] = xs;               // the warp's max
+                    v[1] = fmax(run, lmx0);  // the same without its last state
+                    v[2] = oM[NPL - 1];      // M at its last state
+                }
+                pair_barrier(bar, nbar);     // meeting 2 of the row
             }
-            pair_barrier(bar, nbar);         // meeting 2 of the row
             double below = NEGD;             // max over the warps below g-1
             for (int gg = 0; gg < g; ++gg) {
                 const double *v = xd2 + gg * 4;
@@ -1085,8 +1205,18 @@ __global__ void __launch_bounds__(OA_THREADS)
     if (L > 0) {                             // the last row's E argmax
         const EBest ebp = warp_ebest<NPL>(oM, oD, kb, Mm, rl_prev);
         if (G > 1) {
-            if (lane == 0) XD_EBEST(xd1 + g * OA_XD, ebp);
-            pair_barrier(bar, nbar);
+            if constexpr (kC) {
+                double *v = xd1 + g * OA_XD;
+                put_all_uniform(v + 3, ebp.r, nC);
+                put_all_uniform(v + 4, ebp.s2, nC);
+                put_all_uniform(v + 5, ebp.mxk, nC);
+                put_all_uniform(v + 6, (double)ebp.k, nC);
+                put_all_uniform(v + 7, (double)ebp.n, nC);
+                cluster_meet();
+            } else {
+                if (lane == 0) XD_EBEST(xd1 + g * OA_XD, ebp);
+                pair_barrier(bar, nbar);
+            }
             EBest eb;
             XD_MERGE(eb);
             FINISH_ROW(L, eb, ppC_prev);
@@ -1104,6 +1234,7 @@ __global__ void __launch_bounds__(OA_THREADS)
         stat[(size_t)pr * 4 + 0] = (float)mm;
         stat[(size_t)pr * 4 + 2] = Zlog;
     }
+    if constexpr (kC) cluster_meet();        // no CTA leaves while others write to it
 }
 
 // Pass C of the warp-per-pair kernel: the first-max-wins traceback, one
@@ -1176,8 +1307,9 @@ __global__ void oa_trace_kernel(const int32_t *__restrict__ cta_pair, int nslot,
     stat[(size_t)pr * 4 + 3] = (float)steps;
 }
 
-static size_t warp_smem_bytes(int WG, int Mpad) {
-    return (size_t)(8 * Mpad + 2 * WG * OA_XS + WG * OA_WS + WG * OA_XS) * sizeof(float) +
+// MT: the states whose transitions a CTA holds; WS: OA_WS or OA_WS_C
+static size_t warp_smem_bytes(int WG, int MT, int WS = OA_WS) {
+    return (size_t)(8 * MT + 2 * WG * OA_XS + WG * WS + WG * OA_XS) * sizeof(float) +
            (size_t)(WG * OA_XD + WG * 4) * sizeof(double);
 }
 
@@ -1192,12 +1324,12 @@ static int launch_warp(const float *em_t, const float *tr_t, const int32_t *mode
     const int threads = WP * G * 32;
     if (threads > OA_THREADS) return (int)cudaErrorInvalidConfiguration;
     const size_t smem = warp_smem_bytes(WP * G, Mpad);
-    cudaError_t err = set_smem((const void *)oa_warp_kernel<NPL>, smem);
+    cudaError_t err = set_smem((const void *)oa_warp_kernel<NPL, false>, smem);
     if (err != cudaSuccess) return (int)err;
     if (ncta > 0) {
-        oa_warp_kernel<NPL><<<(unsigned)ncta, threads, smem, stream>>>(
+        oa_warp_kernel<NPL, false><<<(unsigned)ncta, threads, smem, stream>>>(
             em_t, tr_t, model_of, ms, codes, code_off, lens, pmoves, cta_pair, roff,
-            brows, bspec, ptr, rowk, rowf, stat, K, G, Mpad);
+            brows, bspec, ptr, rowk, rowf, stat, K, G, Mpad, 1);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         const int nslot = ncta * WP;
@@ -1235,6 +1367,70 @@ extern "C" int witch_oa_warp(const float *em_t, const float *tr_t,
     default: return (int)cudaErrorInvalidValue;
     }
 #undef OA_LAUNCH
+}
+
+// The cluster instance: one pair per cluster of C CTAs of 8 warps (G = 8 C
+// warps a pair), npl in {8, 16}, Mpad = 32 G npl; ncta clusters (cta_pair,
+// a pair each), scratch as witch_oa_warp's. Refused (an error code) when
+// no such cluster fits on the card at once.
+template <int NPL>
+static int launch_cluster_oa(const float *em_t, const float *tr_t, const int32_t *model_of,
+                             const int32_t *ms, const int32_t *codes,
+                             const int64_t *code_off, const int32_t *lens,
+                             const float *pmoves, const int32_t *cta_pair,
+                             const int64_t *roff, float *brows, float *bspec, uint8_t *ptr,
+                             int32_t *rowk, uint8_t *rowf, int32_t *cols, float *stat,
+                             int ncta, int K, int G, int C, int Mp, int Mpad,
+                             cudaStream_t stream) {
+    const size_t smem = warp_smem_bytes(G, Mpad / C, OA_WS_C);
+    cudaError_t err = set_smem((const void *)oa_warp_kernel<NPL, true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_cluster(oa_warp_kernel<NPL, true>, ncta, C, OA_THREADS, smem, stream,
+                         em_t, tr_t, model_of, ms, codes, code_off, lens, pmoves, cta_pair,
+                         roff, brows, bspec, ptr, rowk, rowf, stat, K, G, Mpad, C);
+    if (err != cudaSuccess) return (int)err;
+    if (ncta > 0)
+        oa_trace_kernel<<<(unsigned)((ncta + 127) / 128), 128, 0, stream>>>(
+            cta_pair, ncta, code_off, lens, roff, ptr, rowk, rowf, cols, stat, Mp, Mpad);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int witch_oa_cluster(const float *em_t, const float *tr_t,
+                                const int32_t *model_of, const int32_t *ms,
+                                const int32_t *codes, const int64_t *code_off,
+                                const int32_t *lens, const float *pmoves,
+                                const int32_t *cta_pair, const int64_t *roff,
+                                float *brows, float *bspec, uint8_t *ptr,
+                                int32_t *rowk, uint8_t *rowf, int32_t *cols,
+                                float *stat, int ncta, int K, int C, int npl,
+                                int Mp, int Mpad, void *stream) {
+    const int G = 8 * C;
+    if (C < 2 || C > 8 || Mpad != 32 * G * npl || Mp > Mpad)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define OA_LAUNCH(NPL_)                                                                  \
+    launch_cluster_oa<NPL_>(em_t, tr_t, model_of, ms, codes, code_off, lens, pmoves,      \
+                            cta_pair, roff, brows, bspec, ptr, rowk, rowf, cols, stat,    \
+                            ncta, K, G, C, Mp, Mpad, st)
+    switch (npl) {
+    case 8: return OA_LAUNCH(8);
+    case 16: return OA_LAUNCH(16);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef OA_LAUNCH
+}
+
+// Clusters of the cluster instance (C CTAs, npl states a lane) the card
+// holds at once, or -error.
+extern "C" int witch_oa_cluster_active(int C, int npl) {
+    const int G = 8 * C;
+    const size_t smem = warp_smem_bytes(G, 32 * G * npl / C, OA_WS_C);
+    const void *fn = npl == 8 ? (const void *)oa_warp_kernel<8, true>
+                              : (const void *)oa_warp_kernel<16, true>;
+    cudaError_t err = set_smem(fn, smem);
+    if (err != cudaSuccess) return -(int)err;
+    return npl == 8 ? max_active_clusters(oa_warp_kernel<8, true>, C, OA_THREADS, smem)
+                    : max_active_clusters(oa_warp_kernel<16, true>, C, OA_THREADS, smem);
 }
 
 // The first version: one CTA per pair, n pairs, scratch of Ldmax rows

@@ -10,17 +10,22 @@ fwd (nats), and ppB, ppE, mocc over rows 0..L, zero past the query.
 Outputs keep the JAX layout: fwd [Q, H], rows [Q, H, Lmax + 1], f32.
 
 flank_layout picks the kernel by the bank width alone: wherever
-ops/forward.py:fwd_layout keeps the row in registers (Mpad up to
-~7,000), the warp-per-pair kernel (G warps of npl states per lane per
-pair, several pairs of one model per CTA, its tables laid out by
-flank_tables, the queries longest first by cta_queries); wider models
-run the first version (one CTA per pair).
+ops/forward.py:fwd_layout keeps the row in registers and the model's
+transitions fit in one CTA's shared memory (bank widths up to Mp 6,304),
+the warp-per-pair kernel (G warps of npl states per lane per pair,
+several pairs of one model per CTA, its tables laid out by flank_tables,
+the queries longest first by cta_queries); wider models (from Mp 6,432)
+the same design over a thread-block cluster: a pair's G = 8 C warps on C
+CTAs, each CTA holding only its own slice of the tables, the row's one
+meeting through distributed shared memory. The first version (one CTA
+per pair) is reached only with first_version=True, for timing.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -35,6 +40,9 @@ SPEC = 5                     # stored Forward log specials per row
 FLANK_WARPS = 8              # warps per CTA (csrc/flank.cu FL_THREADS / 32)
 FLANK_XS = 8                 # floats per warp of a row's exchange
 FLANK_WS = 4                 # loop-invariant floats per warp
+FLANK_WS_C = 8               # the same in the cluster instance
+FLANK_CLUSTER = 8            # most CTAs a cluster (the portable limit)
+FLANK_NPL_C = (8, 16, 24)    # the cluster instance's states per lane
 T_MD, T_DD = 2, 6            # transition rows (device.py:TRANS_ROWS)
 
 
@@ -42,18 +50,32 @@ def flank_layout(Mp: int):
     """(layout, G warps per pair, npl states per lane, Mpad) for a bank
     of width Mp. Layout 0, the warp-per-pair kernel: forward's register
     layout (ops/forward.py:fwd_layout) wherever it has one and the
-    transitions fit in shared memory. Layout 1 (wider models): the first
-    version, one CTA per pair, its rows in shared memory (G, npl unused;
-    Mpad = Mp)."""
+    transitions fit in shared memory (up to Mp 6,304). Layout 1 (wider
+    models), the cluster instance: the fewest CTAs C (G = 8 C warps), then
+    the fewest states per lane of FLANK_NPL_C (24 keeps a CTA's slice of
+    the transitions, 8 x 256 x 24 floats, in its shared memory) that
+    cover Mp: C 2 and npl 16 (Mpad 8,192) from Mp 6,432 on, C 3 and npl
+    24 at the 16,416-state cap."""
     layout, G, npl, Mpad = fwd_layout(Mp)
     if layout == 0 and smem_bytes(G, Mpad) <= _build.SMEM_ROWS_MAX:
         return 0, G, npl, Mpad
-    return 1, 0, 0, Mp
+    for C in range(2, FLANK_CLUSTER + 1):
+        need = -(-Mp // (32 * FLANK_WARPS * C))
+        if need <= FLANK_NPL_C[-1]:
+            npl = min(n for n in FLANK_NPL_C if n >= need)
+            G = FLANK_WARPS * C
+            return 1, G, npl, 32 * G * npl
+    raise ValueError("flank kernel: Mp %d exceeds the widest cluster "
+                     "layout" % Mp)
 
 
-def smem_bytes(G: int, Mpad: int) -> int:
-    """Dynamic shared memory of a warp-per-pair CTA: the model's
-    transitions, the double-buffered row exchange and the invariants."""
+def smem_bytes(G: int, Mpad: int, C: int = 1) -> int:
+    """Dynamic shared memory of a warp-per-pair CTA (C = 1: the model's
+    transitions) or of each CTA of a cluster of C (its slice of them):
+    the transitions, the double-buffered row exchange and the
+    invariants."""
+    if C > 1:
+        return 4 * (8 * Mpad // C + 2 * G * FLANK_XS + G * FLANK_WS_C)
     wp = max(1, FLANK_WARPS // G)
     return 4 * (8 * Mpad + 2 * wp * G * FLANK_XS + wp * G * FLANK_WS)
 
@@ -66,10 +88,24 @@ def unit_chain(tdd: torch.Tensor) -> torch.Tensor:
     return bck_chain(torch.ones_like(t), bck_chain_coeffs(t)).float()
 
 
-def flank_tables(bt: BankTensors, G: int, npl: int):
-    """The warp-per-pair kernel's tables in forward's slot layout
-    (ops/forward.py:slot_index over Mpad = 32 G npl states), cached on the
-    bank:
+def flank_slot_index(Mp: int, G: int, npl: int, C: int = 1) -> np.ndarray:
+    """[Mpad] int64: the state k at each slot of a kernel's tables (-1
+    beyond Mp). Each of the C CTAs holding a pair (1: the warp-per-pair
+    kernel) reads its own slice of Mpad / C slots in forward's slot
+    layout over its own G / C warps: slot c * Mpad / C + (j * G/C + w) *
+    32 + lane holds state ((c * G/C + w) * 32 + lane) * npl + j. C = 1 is
+    ops/forward.py:slot_index."""
+    Gc = G // C
+    c, j, w, lane = np.meshgrid(np.arange(C), np.arange(npl), np.arange(Gc),
+                                np.arange(32), indexing="ij")
+    k = (((c * Gc + w) * 32 + lane) * npl + j).reshape(-1)
+    return np.where(k < Mp, k, -1)
+
+
+def flank_tables(bt: BankTensors, G: int, npl: int, C: int = 1):
+    """The flank kernels' tables, cached on the bank. C = 1, the
+    warp-per-pair kernel, in forward's slot layout
+    (ops/forward.py:slot_index over Mpad = 32 G npl states):
       em_t [H, K, Mpad]  emissions (ops/forward.py:slot_tables);
       tr_t [H, 8, Mpad]  transitions, with t_md and t_dd of state Mp - 1
                          zeroed: the plain chains never read them (its
@@ -80,8 +116,13 @@ def flank_tables(bt: BankTensors, G: int, npl: int):
                          Backward row's delete chain is D = D_c + E D_1,
                          D_c the chain over c[k] = mne[k + 1] t_dm[k]
                          alone, so the kernel runs D_c before E is known
-                         and reads D_1 where a lane's chain enters."""
-    key = ("flank_slots", G, npl)
+                         and reads D_1 where a lane's chain enters.
+    C > 1, the cluster instance: each CTA's slice in flank_slot_index's
+    order, em_t [H, K, Mpad] (slices side by side), tr_t [H, C, 8, Mpad /
+    C] (a CTA's transitions together), and d1_t [H, 32 G]: D_1 at the
+    first state of the next lane, (v + 1) npl for lane v of the pair, 0
+    after the last."""
+    key = ("flank_slots", G, npl, C)
     hit = bt.cache.get(key)
     if hit is None:
         Mpad = 32 * G * npl
@@ -90,10 +131,25 @@ def flank_tables(bt: BankTensors, G: int, npl: int):
         tr[:, :, :bt.Mp] = bt.trans
         tr[:, T_MD, bt.Mp - 1] = 0.0
         tr[:, T_DD, bt.Mp - 1] = 0.0
-        k = torch.as_tensor(slot_index(Mpad, G, npl), device=bt.device)
-        hit = (slot_tables(bt, G, npl)[0],
-               tr.index_select(2, k).contiguous(),
-               unit_chain(tr[:, T_DD]).index_select(1, k).contiguous())
+        if C == 1:
+            k = torch.as_tensor(slot_index(Mpad, G, npl), device=bt.device)
+            hit = (slot_tables(bt, G, npl)[0],
+                   tr.index_select(2, k).contiguous(),
+                   unit_chain(tr[:, T_DD]).index_select(1, k).contiguous())
+        else:
+            ks = flank_slot_index(bt.Mp, G, npl, C)
+            src = torch.as_tensor(np.maximum(ks, 0), device=bt.device)
+            live = torch.as_tensor(ks >= 0, device=bt.device)
+            em = bt.em.index_select(2, src) * live
+            k = torch.as_tensor(flank_slot_index(Mpad, G, npl, C),
+                                device=bt.device)
+            trs = tr.index_select(2, k).reshape(bt.H, 8, C, Mpad // C)
+            d1 = unit_chain(tr[:, T_DD])
+            nxt = torch.arange(1, 32 * G + 1, device=bt.device) * npl
+            d1n = torch.where(nxt < Mpad, d1[:, nxt.clamp(max=Mpad - 1)],
+                              torch.zeros((), device=bt.device))
+            hit = (em.contiguous(), trs.transpose(1, 2).contiguous(),
+                   d1n.contiguous())
         bt.cache[key] = hit
     return hit
 
@@ -263,11 +319,13 @@ def _flank_chunk(bt, c, ql, tmm, tmi, tmd, tim, tii, tdm, bm, Af, Ab):
     return fwd.T, rows
 
 
-def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
+def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor,
+               first_version: bool = False):
     """(fwd [Q, H], ppB, ppE, mocc [Q, H, Lc + 1]) f32 on the bank's
     device: the CUDA kernel flank_layout picks for CUDA tensors (its
     launches' CUDA-event ms added to _build.KERNEL_MS["flank"]), the plain
-    version for CPU tensors."""
+    version for CPU tensors. first_version=True runs the first version
+    instead (for timing on the same calls; no path takes it)."""
     dev = bt.device
     if codes.device != dev or qlens.device != dev:
         raise ValueError("bank, codes and qlens must share a device")
@@ -291,21 +349,25 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor):
     stream = _build.stream_ptr(dev)
     ptrs = [x.data_ptr() for x in [fwd] + outs]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    if layout == 0:
-        em_t, tr_t, d1_t = flank_tables(bt, G, npl)
-        wp = max(1, FLANK_WARPS // G)
+    if not first_version:
+        # layout 1: one pair a cluster of C CTAs
+        C = G // FLANK_WARPS if layout == 1 else 1
+        em_t, tr_t, d1_t = flank_tables(bt, G, npl, C)
+        wp = 1 if layout == 1 else max(1, FLANK_WARPS // G)
         slots = cta_queries(qlens, wp)
         n_groups = len(slots) // wp
         per = max(1, SCRATCH_BYTES // (4 * wp * H * spec_floats(Lc)))
         fspec = torch.empty(min(per, n_groups) * wp * H * spec_floats(Lc),
                             dtype=torch.float32, device=dev)
+        entry = lib.witch_flank_cluster if layout == 1 else \
+            lib.witch_flank_warp
         ev[0].record()
         for g0 in range(0, n_groups, per):
-            rc = lib.witch_flank_warp(
+            rc = entry(
                 em_t.data_ptr(), tr_t.data_ptr(), d1_t.data_ptr(),
                 codes.data_ptr(), qlens.data_ptr(), slots[g0 * wp:].data_ptr(),
                 *ptrs, fspec.data_ptr(), H, min(per, n_groups - g0), bt.K,
-                Lc, W, G, npl, Mpad, stream)
+                Lc, W, C if layout == 1 else G, npl, Mpad, stream)
             _build.check(rc, "flank")
     else:
         chunk = max(1, min(Q, SCRATCH_BYTES // (H * W * SPEC * 4)))

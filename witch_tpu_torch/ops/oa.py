@@ -10,10 +10,13 @@ decision margin keeps the TPU kernel's definition (see csrc/oa.cu).
 
 oa_layout picks the kernel by the bank width alone: up to Mp 4,096 the
 warp-per-pair kernel (G warps of npl states per lane, its tables laid out
-by oa_tables; pairs grouped by model into CTAs, longest
-first, launches cut by their own scratch, plan.py:plan_launches), above
-it the first version (one CTA per pair, scratch of the longest query for
-every pair).
+by oa_tables; pairs grouped by model into CTAs, longest first, launches
+cut by their own scratch, plan.py:plan_launches); above it the same
+design over a thread-block cluster (a pair's G = 8 C warps on C CTAs,
+each holding its own slice of the transitions, the row's meetings
+through distributed shared memory; one pair a cluster, planned the same
+way). The first version (one CTA per pair, scratch of the longest query
+for every pair) is reached only with first_version=True, for timing.
 """
 
 from __future__ import annotations
@@ -39,41 +42,64 @@ SCRATCH_BYTES = 2 << 30
 ROW_BYTES = 3 * (8 + 4)      # oM oI oD (f64) + fM fI fD (f32) per state
 OA_NPL = (8, 16)             # warp-per-pair kernel: states per lane
 OA_WARPS = 8                 # warps per CTA (csrc/oa.cu OA_THREADS / 32)
+OA_CLUSTER = 8               # most CTAs a cluster (the portable limit)
 
 
 def oa_layout(Mp: int):
     """(layout, G warps per pair, npl states per lane, Mpad) for a bank of
     width Mp. Layout 0, the warp-per-pair kernel: the fewest states per
     lane (8, else 16) that G <= 8 warps cover, so Mp up to 32 * 8 * 16 =
-    4,096. Layout 1 (wider models): the first version, one CTA per pair
-    (G, npl unused; Mpad = Mp)."""
+    4,096. Layout 1 (wider models), the cluster instance: C = G / 8 CTAs
+    of 8 warps a pair, the fewest states per lane (8, else 16) that C <= 8
+    CTAs cover, then the fewest CTAs: 8 states a lane up to Mp 16,384
+    (the 16-state instance spills), 16 above (Mp 16,416 takes C 5, Mpad
+    20,480), up to 32,768."""
     for npl in OA_NPL:
         G = -(-Mp // (32 * npl))
         if G <= OA_WARPS:
             return 0, G, npl, 32 * G * npl
-    return 1, 0, 0, Mp
+    for npl in OA_NPL:
+        C = -(-Mp // (32 * OA_WARPS * npl))
+        if C <= OA_CLUSTER:
+            G = OA_WARPS * C
+            return 1, G, npl, 32 * G * npl
+    raise ValueError("oa kernel: Mp %d exceeds the widest cluster layout"
+                     % Mp)
 
 
-def oa_tables(bt: BankTensors, G: int, npl: int):
-    """The warp-per-pair kernel's tables, cached on the bank: emissions
-    [H, K, Mpad] in k order, zero beyond Mp; transitions [H, 8, Mpad] as
-    the float4s its CTAs copy into shared memory, entry
-    ((r * npl/4 + h) * 32 G + s) * 4 + c holding state s * npl + 4 h + c
-    (zero beyond Mp)."""
-    key = ("oa_tables", G, npl)
+def oa_table_index(G: int, npl: int, C: int = 1) -> np.ndarray:
+    """[Mpad] int64: the state k at each entry of one transition row of
+    the kernel's tables. Each of the C CTAs holding a pair (1 outside a
+    cluster) copies its own slice of SB = 32 G / C lanes, entry
+    ((c * 8 + r) * npl/4 + h) * SB + s) * 4 + q of a model's table (r the
+    transition row) holding state (c * SB + s) * npl + 4 h + q: a lane's
+    npl states as npl / 4 float4s, consecutive lanes on consecutive
+    float4s."""
+    SB = 32 * G // C
+    c, h, s, q = np.meshgrid(np.arange(C), np.arange(npl // 4),
+                             np.arange(SB), np.arange(4), indexing="ij")
+    return ((c * SB + s) * npl + 4 * h + q).reshape(-1)
+
+
+def oa_tables(bt: BankTensors, G: int, npl: int, C: int = 1):
+    """The OA kernels' tables, cached on the bank: emissions [H, K, Mpad]
+    in k order, zero beyond Mp; transitions [H, C, 8, Mpad / C] as the
+    float4s each CTA copies into shared memory (oa_table_index; zero
+    beyond Mp). C = 1: the warp-per-pair kernel, [H, 8, Mpad]."""
+    key = ("oa_tables", G, npl, C)
     hit = bt.cache.get(key)
     if hit is None:
         Mpad = 32 * G * npl
         em = torch.zeros((bt.H, bt.K, Mpad), dtype=torch.float32,
                          device=bt.device)
         em[:, :, :bt.Mp] = bt.em
-        h, s, c = np.meshgrid(np.arange(npl // 4), np.arange(32 * G),
-                              np.arange(4), indexing="ij")
-        k = (s * npl + 4 * h + c).reshape(-1)
+        k = oa_table_index(G, npl, C)
         src = torch.as_tensor(np.where(k < bt.Mp, k, 0), device=bt.device)
         live = torch.as_tensor(k < bt.Mp, device=bt.device)
-        tr = (bt.trans.index_select(2, src) * live).contiguous()
-        hit = (em, tr)
+        tr = bt.trans.index_select(2, src) * live
+        if C > 1:
+            tr = tr.reshape(bt.H, 8, C, Mpad // C).transpose(1, 2)
+        hit = (em, tr.contiguous())
         bt.cache[key] = hit
     return hit
 
@@ -346,13 +372,15 @@ def _trace(ptr, Mpad, rowk, rowf, L, Mp, Ldmax):
 
 
 def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
-            Ldmax: int = 0, budget: Optional[int] = None):
+            Ldmax: int = 0, budget: Optional[int] = None,
+            first_version: bool = False):
     """(cols [len(flat)] int32, stat [n, 4] f32) in input order: a CUDA
     kernel for CUDA tensors (oa_layout: by width alone), the plain
-    version for CPU tensors. Ldmax (>= every length) sizes the first
-    version's per-pair scratch and bounds its traceback; `budget` caps
-    the warp-per-pair kernel's scratch bytes per launch (default: every
-    pair's rows, at most half the memory the card can still hand out)."""
+    version for CPU tensors. `budget` caps the scratch bytes of a launch
+    (default: every pair's rows, at most half the memory the card can
+    still hand out). first_version=True runs the first version instead
+    (for timing on the same calls; no path takes it), whose per-pair
+    scratch Ldmax (>= every length) sizes."""
     dev = bt.device
     for t in (rows, ms, flat, off, lens, pmove):
         if t.device != dev:
@@ -376,15 +404,17 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
     stream = _build.stream_ptr(dev)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     layout, G, npl, Mpad = oa_layout(bt.Mp)
-    if layout == 0:
+    if not first_version:
         lens_h = lens.cpu().numpy().astype(np.int64)
-        wp = max(1, OA_WARPS // G)
+        # layout 1: one pair a cluster of C CTAs
+        C = G // OA_WARPS if layout == 1 else 1
+        wp = 1 if layout == 1 else max(1, OA_WARPS // G)
         row_bytes = oa_row_bytes(Mpad)
         if budget is None:
             budget = min(int(lens_h.sum()) * row_bytes, scratch_cap(dev))
         plan = plan_launches(lens_h, rows.cpu().numpy(), wp, row_bytes,
                              budget)
-        em_t, tr_t = oa_tables(bt, G, npl)
+        em_t, tr_t = oa_tables(bt, G, npl, C)
         cta_pair = torch.from_numpy(plan.cta_env).to(dev)
         roff = torch.from_numpy(plan.roff).to(dev)
         most = max(1, max(plan.n_rows))
@@ -394,15 +424,17 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
         rowk = torch.empty(most, dtype=torch.int32, device=dev)
         rowf = torch.empty(most, dtype=torch.uint8, device=dev)
         ev[0].record()
+        entry = lib.witch_oa_cluster if layout == 1 else lib.witch_oa_warp
         for a, b in zip(plan.cta0[:-1], plan.cta0[1:]):
-            rc = lib.witch_oa_warp(
+            rc = entry(
                 em_t.data_ptr(), tr_t.data_ptr(), rows.data_ptr(),
                 ms.data_ptr(), flat.data_ptr(), off.data_ptr(),
                 lens.data_ptr(), pmove.data_ptr(),
                 cta_pair[a * wp:].data_ptr(), roff.data_ptr(),
                 brows.data_ptr(), bspec.data_ptr(), ptr.data_ptr(),
                 rowk.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
-                stat.data_ptr(), b - a, bt.K, G, npl, bt.Mp, Mpad, stream)
+                stat.data_ptr(), b - a, bt.K, C if layout == 1 else G, npl,
+                bt.Mp, Mpad, stream)
             _build.check(rc, "oa")
         ev[1].record()
     else:

@@ -2,7 +2,8 @@
 two checkouts of the repository, on one CUDA card.
 
     python3 witch_tpu_torch/tools/flank_bench.py [--tree DIR ...] [--reps N]
-        [--plain] [--sets bench,amino500,dna1k] [--cache DIR] [--layouts]
+        [--plain] [--first] [--sets bench,amino500,dna1k,dnawide]
+        [--cache DIR] [--layouts]
 
 The sets:
   bench     bench_assets.npz: 141 models in two banks (Mp 1,312 and
@@ -12,7 +13,12 @@ The sets:
   dna1k     the --full-search-results grid of the first 60 queries of
             scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
             20260820 (scenario D; Mp 1,440 and 1,568)
-The two full-search grids are what the prefilter hands to
+  dnawide   the --full-search-results grid of the first 10 queries of
+            make_scale_dataset.py --n 200 --queries 100 --cols 8000
+            --seed 20261017 (7,110 columns, Mp 7,072 and 7,200: the
+            cluster instance), chip_smoke.py phase 4wc's grid (not in the
+            default sets)
+The full-search grids are what the prefilter hands to
 ops/flank.py:flank_rows, recorded once through this checkout's CLI and
 cached as .npz files under --cache (default build/flank_bench).
 Each tree runs in its own process (the trees' packages share a name), in
@@ -26,8 +32,11 @@ kernel must move, rows_bytes_ms (per pair the outputs, 3 x 4 B x
 (Lc + 1), and the stored Forward specials, 20 B a row written and read
 back, at 3.35 TB/s); with --plain, on each set's 16 longest queries and
 16 more at random against all its models, the largest |dfwd| and |drows|
-against the plain version and its ms (one call); and the card's name and
-power limit.
+against the plain version and its ms (one call); with --first, the first
+version (first_version=True) on the same calls, once: its kernel ms and
+launches; and the card's name and power limit. First, one JSON line of
+the cluster barrier probe of the first tree that has one
+(null2_bench.py:probe).
 
 --layouts (this tree only) times the warp-per-pair kernel under other
 (G warps, npl states per lane) register layouts than
@@ -46,6 +55,7 @@ sys.path.insert(0, HERE)
 import null2_bench  # noqa: E402
 
 DNA_FULL = 60                # dna1k queries of the full search
+DNAWIDE_FULL = 10            # dnawide queries of the full search
 
 RECORD = r"""
 import os, sys
@@ -95,10 +105,10 @@ CHILD = r"""
 import json, os, sys, types
 import numpy as np
 import torch
-tree, reps, plain, layouts = sys.argv[1], int(sys.argv[2]), \
-    sys.argv[3] == "1", sys.argv[4] == "1"
-names = sys.argv[5].split(",")
-paths = sys.argv[6:]
+tree, reps, plain, layouts, first = sys.argv[1], int(sys.argv[2]), \
+    sys.argv[3] == "1", sys.argv[4] == "1", sys.argv[5] == "1"
+names = sys.argv[6].split(",")
+paths = sys.argv[7:]
 sys.path.insert(0, tree)
 sys.modules["jax"] = None
 from witch_tpu_torch import _build
@@ -180,6 +190,16 @@ def run(calls):
             _build.LAUNCHES["flank"] // reps)
 
 
+def run_first(calls):
+    # the first version on the same calls, once
+    LIB.take_ms()
+    _build.reset_launches()
+    for bt, c, ln in calls:
+        FL.flank_rows(bt, c, ln, first_version=True)
+    return dict(ms_first_version=LIB.take_ms(),
+                launches_first_version=_build.LAUNCHES["flank"])
+
+
 def layout_of(Mp):
     lay = getattr(FL, "flank_layout", None)
     return list(lay(Mp)) if lay else "first version"
@@ -230,6 +250,8 @@ if not layouts:
                    launches=launches, **stats(calls))
         if plain:
             res.update(against_plain(calls))
+        if first:
+            res.update(run_first(calls))
         print(json.dumps(res), flush=True)
     sys.exit(0)
 from witch_tpu_torch.ops.forward import FWD_NPL
@@ -271,8 +293,9 @@ def record(which, cache):
         return out
     data = null2_bench.make_data(which, cache)
     r = subprocess.run([sys.executable, "-c", RECORD, ROOT, which, data,
-                        out, str(DNA_FULL)], capture_output=True, text=True,
-                       timeout=1800)
+                        out, str(DNAWIDE_FULL if which == "dnawide"
+                                 else DNA_FULL)],
+                       capture_output=True, text=True, timeout=1800)
     if r.returncode != 0:
         raise RuntimeError("recording %s failed:\n%s" % (
             which, r.stdout[-3000:] + r.stderr[-3000:]))
@@ -287,6 +310,7 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--layouts", action="store_true")
+    ap.add_argument("--first", action="store_true")
     ap.add_argument("--sets", default="bench,amino500,dna1k")
     ap.add_argument("--cache", default=os.path.join(ROOT, "build",
                                                     "flank_bench"))
@@ -300,10 +324,12 @@ def main():
     turns = trees if len(trees) == 1 else \
         [trees[0], trees[1], trees[1], trees[0]]
     card = null2_bench.smi()
+    null2_bench.probe(trees[0], card)
     for t in turns:
         r = subprocess.run([sys.executable, "-c", CHILD, t, str(a.reps),
                             "1" if a.plain else "0",
-                            "1" if a.layouts else "0", ",".join(names)]
+                            "1" if a.layouts else "0",
+                            "1" if a.first else "0", ",".join(names)]
                            + paths, capture_output=True, text=True,
                            timeout=3000)
         for line in r.stdout.splitlines():

@@ -48,7 +48,7 @@ if which == "amino500":
             "-e", os.path.join(gold, "ref_amino500.backbone.tre"),
             "-q", os.path.join(gold, "ref_amino500.queries.fasta"),
             "--molecule", "amino"]
-elif which == "dna1k":
+elif which in ("dna1k", "dnawide"):
     argv = ["-b", os.path.join(data, "backbone.aln.fasta.gz"),
             "-e", os.path.join(data, "backbone.tre"),
             "-q", os.path.join(data, "queries.fasta")]
@@ -251,6 +251,36 @@ def smi():
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
 
 
+# The thread-block cluster meeting of a tree's ops/cluster.py (the OA and
+# flank kernels' cluster instances cross it once to three times a DP row)
+PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.modules["jax"] = None
+from witch_tpu_torch.ops.cluster import barrier_probe
+print(json.dumps(dict(cluster_probe=barrier_probe((2, 4, 8)))))
+"""
+
+
+def probe(tree, card):
+    """Print one JSON line of the tree's cluster barrier probe
+    (ops/cluster.py:barrier_probe: ns a meeting, the barrier alone and
+    with a DSMEM exchange of one record, C = 2, 4 and 8, one cluster and
+    every co-resident one), if the tree has it."""
+    if not os.path.exists(os.path.join(tree, "witch_tpu_torch", "ops",
+                                       "cluster.py")):
+        return
+    r = subprocess.run([sys.executable, "-c", PROBE, tree],
+                       capture_output=True, text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        if line.startswith("{"):
+            res = json.loads(line)
+            res.update(tree=tree, card=card)
+            print(json.dumps(res), flush=True)
+    if r.returncode != 0:
+        raise RuntimeError("cluster probe failed:\n" + r.stderr[-3000:])
+
+
 def make_data(which, cache):
     """The data directory of a set (amino500 reads tests/golden)."""
     data = os.path.join(cache, "data_" + which)
@@ -261,6 +291,10 @@ def make_data(which, cache):
         subprocess.run(gen + ["--n", "1000", "--queries", "1000", "--seed",
                               "20260820", "--out", data], check=True,
                        capture_output=True, timeout=600)
+    elif which == "dnawide":
+        subprocess.run(gen + ["--n", "200", "--queries", "100", "--cols",
+                              "8000", "--seed", "20261017", "--out", data],
+                       check=True, capture_output=True, timeout=600)
     elif which == "scenA":
         subprocess.run(gen + ["--n", "300", "--queries", "100", "--seed",
                               "20261016", "--out", data], check=True,

@@ -2,7 +2,8 @@
 for one or two checkouts of the repository, on one CUDA card.
 
     python3 witch_tpu_torch/tools/oa_bench.py [--tree DIR ...] [--reps N]
-        [--plain] [--sets amino500,dna1k,bench] [--cache DIR]
+        [--plain] [--first] [--sets amino500,dna1k,bench,dnawide]
+        [--cache DIR]
 
 The pair sets are what the port's aligner hands to ops/oa.py:oa_columns,
 recorded once through this checkout's CLI (null2_bench.py's data and
@@ -13,6 +14,10 @@ build/oa_bench):
             20260820, scenario D (Mp 1,440 and 1,568)
   bench     256 seeded pairs of bench_assets.npz, 128 on each bank (Mp
             1,312 and 2,720), the pairs chip_smoke.py's phase 2c takes
+  dnawide   make_scale_dataset.py --n 200 --queries 100 --cols 8000
+            --seed 20261017, scenario D (7,110 columns; Mp 7,072 and
+            7,200: the cluster instance), chip_smoke.py phase 4w's pairs
+            (not in the default sets: its recording takes a few minutes)
 Each tree runs in its own process (the trees' packages share a name), in
 turns A B B A for two trees. Per tree, turn and set it prints one JSON
 line: the CUDA-event ms of the set's oa_nats calls (mean of --reps after
@@ -26,7 +31,11 @@ state-row at the tree's padded width: Backward M and I written and read
 back, the pointer byte written) at 3.35 TB/s; with --plain, on a seeded
 sample of the set (its 64 longest pairs and 64 more at random), the
 above-guard column mismatches against the plain version and the largest
-margin difference; and the card's name and power limit.
+margin difference; with --first, the first version
+(first_version=True) on the same calls, one call a group: its kernel
+ms and launches; and the card's name and power limit. First, one JSON
+line of the cluster barrier probe of the first tree that has one
+(null2_bench.py:probe).
 """
 
 import argparse
@@ -85,9 +94,10 @@ CHILD = r"""
 import json, sys
 import numpy as np
 import torch
-tree, reps, plain = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1"
-names = sys.argv[4].split(",")
-paths = sys.argv[5:]
+tree, reps, plain, first = sys.argv[1], int(sys.argv[2]), \
+    sys.argv[3] == "1", sys.argv[4] == "1"
+names = sys.argv[5].split(",")
+paths = sys.argv[6:]
 sys.path.insert(0, tree)
 sys.modules["jax"] = None
 from witch_tpu_torch import _build
@@ -191,6 +201,16 @@ def run(groups):
             _build.LAUNCHES["oa"] // reps)
 
 
+def run_first(groups):
+    # the first version on the same calls, one call a group
+    LIB.take_ms()
+    _build.reset_launches()
+    for bt, pr, ld in groups:
+        OA.oa_nats(bt, *OA.pack_pairs(bt, pr), Ldmax=ld, first_version=True)
+    return dict(ms_first_version=LIB.take_ms(),
+                launches_first_version=_build.LAUNCHES["oa"])
+
+
 def stats(groups):
     cells = float(sum(len(c) * int(bt.M[r]) for bt, pr, _ in groups
                       for r, c in pr))
@@ -246,6 +266,8 @@ for name, path in zip(names, paths):
                launches=launches, **stats(groups))
     if plain:
         res.update(against_plain(groups))
+    if first:
+        res.update(run_first(groups))
     print(json.dumps(res), flush=True)
 """
 
@@ -255,6 +277,7 @@ def main():
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--first", action="store_true")
     ap.add_argument("--sets", default="amino500,dna1k,bench")
     ap.add_argument("--cache", default=os.path.join(ROOT, "build",
                                                     "oa_bench"))
@@ -267,9 +290,11 @@ def main():
     turns = trees if len(trees) == 1 else \
         [trees[0], trees[1], trees[1], trees[0]]
     card = null2_bench.smi()
+    null2_bench.probe(trees[0], card)
     for t in turns:
         r = subprocess.run([sys.executable, "-c", CHILD, t, str(a.reps),
-                            "1" if a.plain else "0", ",".join(names)]
+                            "1" if a.plain else "0",
+                            "1" if a.first else "0", ",".join(names)]
                            + paths, capture_output=True, text=True,
                            timeout=3000)
         for line in r.stdout.splitlines():
