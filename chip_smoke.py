@@ -76,7 +76,8 @@ Phases:
      sampled dropped pairs unreported by native evaluate_targets, 300
      sampled kept pairs equal between native domain definition on the
      device rows and on its own f64 rows); then (4b) scenario C on the
-     same data (-e left out): the device distance counts equal numpy
+     same backbone and its first DNA1K_C_Q = 300 queries (-e left out):
+     the device distance counts equal numpy
      float64, every query placed or ignored, backbone rows intact, the
      query rows against the JAX package's (ref_dna1k_c.*, at least
      DNA1K_C_JAX); (4s) query sharding: dna1k (4's data) through
@@ -121,10 +122,22 @@ Phases:
      plain's and the bound; then dna1k's data at the default
      1,000-sequence backbone (24,000 pairs): the kernel's ms, launches,
      cells and bound, the first version's ms, plain on its one launch,
-     within 2e-4 a residue; (5d) scenario A again with
+     within 2e-4 a residue; (5w) dnawide's backbone embedding (phase
+     4w's data, 100 sequences of ~7,000 residues, 2,400 pairs) on the
+     wide layout (one CTA of G warps a pair): no wide instance spilling,
+     the wide layout at every width with its CTAs a SM, its ms below the
+     first version's on the same calls, the bound, 256 seeded pairs
+     against plain within 2e-4 a residue; (5d) scenario A again with
      WITCH_TPU_DEVICE_EMBED=1: phase 5's checks, the rows against the
      same golden, and the pair-HMM kernel launched, the register kernel
-     at every width;
+     at every width; (5e) scenario A on long sequences (make_scale_
+     dataset.py --n 120 --queries 30 --cols 1920 --seed 20261018,
+     --backbone-size 70) with WITCH_TPU_DEVICE_EMBED=1: phase 5's checks,
+     every masked row against the JAX package's (ref_scenA_long.*, at
+     least SCEN_A_LONG_JAX), the pair-HMM kernel launched on the wide
+     layout at every call, and the path's 1,680 embedding pairs replayed
+     (the wide layout's ms, the first version's on the same calls,
+     plain's within 2e-4 a residue, the bound);
   6. {"kernels": [...]} JSON (each kernel's launches on the main path,
      error, ms and plain ms, and its bound: the larger of its operations
      at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
@@ -134,8 +147,9 @@ Phases:
      full-search replays', the bound of its outputs and stored specials,
      rows_bytes_ms, and its layout at each width; pairhmm's main path is
      scenario A with WITCH_TPU_DEVICE_EMBED=1, its entry also the first
-     version's ms, the layout at each width, each instance's registers,
-     spills and warps a SM, and the 24,000-pair run's numbers), the
+     version's ms, the layout (layout, CH, G) at each width, each
+     instance's registers, spills and warps a SM, and the 24,000-pair,
+     dnawide (5w) and scenario_a_long (5e) runs' numbers), the
      nvidia-smi line, a check that no module of JAX or witch_tpu was
      loaded, and as the last line {"ok": true, "device": {...}}.
 
@@ -167,6 +181,9 @@ DNA_N = 1000                        # dna1k backbone and queries
 WIDE_M = (8000, 16384)              # phase 2e model sizes
 DNA_FULL = 30                       # dna1k queries of the full search (cut
                                     # from 60 for the smoke budget)
+DNA1K_C_Q = 300                     # dna1k queries of scenario C (4b;
+                                    # cut from 1,000 for the smoke budget:
+                                    # a query's row depends on it alone)
 # dnawide (4w): make_scale_dataset.py --n 200 --queries 100 --cols 8000
 # --seed 20261017, 7,110 columns; the queries run in 4w (cut from 100:
 # the host's exact-f32 overlay took 93.6 s of the 134.5 s wall at 100,
@@ -176,6 +193,16 @@ DNAWIDE = (200, 100, 8000, 20261017)
 DNAWIDE_Q = 30
 DNAWIDE_FULL = 4
 SCEN_A = (300, 100, 100)            # full-length, fragments, backbone
+# scenario A on long sequences (5e): make_scale_dataset.py --n 120
+# --queries 30 --cols 1920 --seed 20261018 (full-length rows of 1,647-
+# 1,686 residues), --backbone-size 70: its anchor embedding takes the
+# pair-HMM kernel's wide layout
+SCEN_A_LONG = (120, 30, 1920, 20261018, 70)
+# dnawide's backbone embedding (5w): the sequences select_backbone picks
+# of phase 4w's data (~7,000 residues, 2,400 pairs), and the seeded pairs
+# compared with plain
+DNAWIDE_EMBED = 100
+DNAWIDE_EMBED_PLAIN = 256
 REC_ALIGNER = []        # the DeviceAligner of the latest CLI run
 WALL = {}               # CLI wall seconds by run label
 # dna1k against the JAX package (tests/golden/ref_dna1k.queries.masked.
@@ -192,10 +219,12 @@ DNAWIDE_JAX = ("ref_dnawide.queries.masked.fasta.gz", 30)
 # CPU with JAX_PLATFORMS=cpu python -m witch_tpu, commands in PERF.md):
 # golden file and the rows equal on the first chip run, below which the
 # check fails. Scenario A: every masked row (phases 5 and 5d, with and
-# without the device embedding: its rows are the same); dna1k scenario C
-# (4b) and amino500 -m old-witch (3c): the query rows
+# without the device embedding: its rows are the same; 5e on the long
+# input); dna1k scenario C (4b; its first DNA1K_C_Q queries, all equal
+# at 1,000 too) and amino500 -m old-witch (3c): the query rows
 SCEN_A_JAX = ("ref_scenA.aligned.masked.fasta.gz", 400)
-DNA1K_C_JAX = ("ref_dna1k_c.queries.masked.fasta.gz", 1000)
+SCEN_A_LONG_JAX = ("ref_scenA_long.aligned.masked.fasta.gz", 150)
+DNA1K_C_JAX = ("ref_dna1k_c.queries.masked.fasta.gz", 300)
 AMINO500_OW_JAX = ("ref_amino500_ow.queries.masked.fasta.gz", 500)
 JAX_DIFF_SHOWN = 10
 # the pair-HMM embedding at dna1k's data and the default 1,000-sequence
@@ -1961,14 +1990,19 @@ def phase_scenario_c(tmp, rec):
     import numpy as np
     from witch_tpu_torch.tree_estimate import jc_distances
 
-    say("== phase 4b: scenario C, dna1k without -e (tree estimated)")
+    from witch_tpu_torch.io.fasta import read_fasta, write_fasta
+
     data = os.path.join(tmp, "dna1k")
+    qpath = os.path.join(tmp, "dna1k_c.queries.fasta")
+    write_fasta(list(read_fasta(os.path.join(data, "queries.fasta")))
+                [:DNA1K_C_Q], qpath)
+    say("== phase 4b: scenario C, dna1k without -e (tree estimated), its "
+        "first %d queries" % DNA1K_C_Q)
     outdir = os.path.join(tmp, "dna1k_c")
     rec.clear()
     out, dt, launches = run_cli([
         "-b", os.path.join(data, "backbone.aln.fasta.gz"),
-        "-q", os.path.join(data, "queries.fasta"),
-        "-d", outdir, "-o", "aligned.fasta"])
+        "-q", qpath, "-d", outdir, "-o", "aligned.fasta"])
     print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
     aln, m, d = rec.counts[-1]
@@ -1986,8 +2020,7 @@ def phase_scenario_c(tmp, rec):
           and np.array_equal(rec.dist[-1], jc_distances(m64, d64, K)),
           "scenario C: device identity counts and distances [%d x %d] "
           "equal numpy float64" % (n, n))
-    placed, n_ign, bad = _query_rows_ok(outdir,
-                                        os.path.join(data, "queries.fasta"))
+    placed, n_ign, bad = _query_rows_ok(outdir, qpath)
     check(not bad, "scenario C: every query placed with its residues (%d) "
           "or ignored (%d)" % (placed, n_ign))
     masked = read_fasta_dict(os.path.join(outdir, "aligned.masked.fasta"))
@@ -1995,9 +2028,8 @@ def phase_scenario_c(tmp, rec):
     badb = [k for k, s in bb.items() if masked.get(k) != s.upper()]
     check(not badb, "scenario C: %d/%d backbone rows equal the input"
           % (len(bb) - len(badb), len(bb)))
-    from witch_tpu_torch.io.fasta import read_fasta
-    rows_vs_jax("scenario C", masked, DNA1K_C_JAX, [n for n, _ in read_fasta(
-        os.path.join(data, "queries.fasta"))])
+    rows_vs_jax("scenario C", masked, DNA1K_C_JAX,
+                [n for n, _ in read_fasta(qpath)])
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
           "scenario C: forward, null2 and oa launched %s" % launches)
     return launches
@@ -2132,19 +2164,23 @@ def phase_sharded(tmp):
     return total
 
 
-def scenario_a_input(tmp):
-    """Phase 5's input (made once): 300 ungapped full-length rows and 100
-    fragments of make_scale_dataset.py --seed 20261016."""
+def scenario_a_input(tmp, spec=None):
+    """Scenario A's -i input (made once): the ungapped full-length rows
+    and the fragments of make_scale_dataset.py; spec (full-length,
+    fragments, --cols or None, --seed) defaults to phase 5's SCEN_A, 300
+    and 100 of --seed 20261016."""
     from witch_tpu_torch.io.fasta import read_fasta, write_fasta
-    data = os.path.join(tmp, "scenA")
+    n_full, n_frag, cols, seed = spec or SCEN_A[:2] + (None, 20261016)
+    data = os.path.join(tmp, "scenA" if spec is None else
+                        "scenA_%d_%d_%s_%d" % (n_full, n_frag, cols, seed))
     inp = os.path.join(data, "input.fasta")
     if os.path.exists(inp):
         return inp
-    n_full, n_frag, _ = SCEN_A
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),
                     "--n", str(n_full), "--queries", str(n_frag), "--seed",
-                    "20261016", "--out", data], check=True,
+                    str(seed), "--out", data]
+                   + (["--cols", str(cols)] if cols else []), check=True,
                    capture_output=True, timeout=300)
     recs = [(n, s.replace("-", "").upper()) for n, s in read_fasta(
         os.path.join(data, "backbone.aln.fasta.gz"))]
@@ -2154,18 +2190,19 @@ def scenario_a_input(tmp):
     return inp
 
 
-def phase_scenario_a(tmp, rec, label="scenario A", out="scenA_out"):
+def phase_scenario_a(tmp, rec, label="5: scenario A", out="scenA_out",
+                     spec=None, backbone=SCEN_A[2], golden=SCEN_A_JAX):
     from witch_tpu_torch.io.fasta import read_fasta
 
-    say("== phase 5: %s, -i (300 full-length + 100 fragments), "
-        "--backbone-size 100" % label)
-    inp = scenario_a_input(tmp)
+    inp = scenario_a_input(tmp, spec)
     n_in = sum(1 for _ in read_fasta(inp))
+    say("== phase %s, -i (%d sequences), --backbone-size %d"
+        % (label, n_in, backbone))
     outdir = os.path.join(tmp, out)
     rec.clear()
     _, dt, launches = run_cli(["-i", inp, "-d", outdir, "-o",
                                "aligned.fasta", "--backbone-size",
-                               str(SCEN_A[2])])
+                               str(backbone)])
     lines = print_breakdown(outdir)
     say("  wall %.2f s; launches %s" % (dt, launches))
     say("  " + " | ".join(ln.split("\t", 1)[-1].strip() for ln in lines
@@ -2180,7 +2217,8 @@ def phase_scenario_a(tmp, rec, label="scenario A", out="scenA_out"):
           % (label, len(masked), widths))
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
           "%s: forward, null2 and oa launched %s" % (label, launches))
-    rows_vs_jax(label, masked, SCEN_A_JAX)
+    rows_vs_jax(label, masked, golden)
+    WALL[out] = dt
     return launches
 
 
@@ -2198,7 +2236,7 @@ def phase_scenario_a_embed(tmp, rec):
     ph.pairhmm_layout = layout
     try:
         launches = phase_scenario_a(
-            tmp, rec, "scenario A with WITCH_TPU_DEVICE_EMBED=1",
+            tmp, rec, "5d: scenario A with WITCH_TPU_DEVICE_EMBED=1",
             "scenA_embed_out")
     finally:
         del os.environ["WITCH_TPU_DEVICE_EMBED"]
@@ -2207,9 +2245,19 @@ def phase_scenario_a_embed(tmp, rec):
           and all(v[0] == 0 for v in seen.values()),
           "scenario A with WITCH_TPU_DEVICE_EMBED=1: the pair-HMM kernel "
           "launched %d times, the register kernel at every width (LB: "
-          "layout, CH, rows and codes in shared memory %s)"
+          "layout, CH, G %s)"
           % (launches["pairhmm"], seen))
     return launches
+
+
+def _pairhmm_tool():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "witch_pairhmm_bench", os.path.join(
+            ROOT, "witch_tpu_torch", "tools", "pairhmm_bench.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
 
 
 def phase_embed(tmp, dev, result):
@@ -2225,7 +2273,6 @@ def phase_embed(tmp, dev, result):
     backbone, 24,000 pairs: the kernel's ms, launches, cells and bound,
     the first version's ms, and plain on its one launch (no warm-up),
     within 2e-4 a residue."""
-    import importlib.util
     import numpy as np
     from witch_tpu_torch import _build
     from witch_tpu_torch.core.alphabet import ALPHABETS
@@ -2233,20 +2280,18 @@ def phase_embed(tmp, dev, result):
 
     say("== phase 5c: pair-HMM anchor embeddings, kernel vs plain and the "
         "first version")
-    spec = importlib.util.spec_from_file_location(
-        "witch_pairhmm_bench", os.path.join(
-            ROOT, "witch_tpu_torch", "tools", "pairhmm_bench.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _pairhmm_tool()
     regs = tool.ptxas()
     for r in regs:
         say("  ptxas %s: %d registers, %d B stack, spill stores %d B, "
             "loads %d B; %d warps a SM" % (
                 r["kernel"], r["registers"], r["stack"], r["spill_stores"],
                 r["spill_loads"], r["warps_per_sm"]))
-    check(len(regs) == 12 and not any(r["spill_stores"] or r["spill_loads"]
-                                       for r in regs),
-          "pairhmm: no spills in the %d kernel instances" % len(regs))
+    from witch_tpu_torch.ops.pairhmm import PH_CH, PHW_CH
+    check(len(regs) == len(PH_CH) + len(PHW_CH) + 1
+          and not any(r["spill_stores"] or r["spill_loads"] for r in regs),
+          "pairhmm: no spills in the %d kernel instances (register, wide "
+          "and first version)" % len(regs))
 
     al = ALPHABETS["dna"]
     codes = [al.encode(x.replace("-", "").upper()) for _, x in read_fasta(
@@ -2264,7 +2309,7 @@ def phase_embed(tmp, dev, result):
     r = tool.time_calls(calls, 3, first=True)
     check(all(v[0] == 0 for v in r["layouts"].values()),
           "pairhmm: the register kernel at every width of the path (LB: "
-          "layout, CH, rows and codes in shared memory %s)" % r["layouts"])
+          "layout, CH, G %s)" % r["layouts"])
     b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
     check(abs(b_ms - r["bound_ms"]) <= 1e-9 * b_ms,
           "pairhmm: the tool's bound equals the script's")
@@ -2313,6 +2358,142 @@ def phase_embed(tmp, dev, result):
         ms_first_version=r["ms_first_version"],
         max_abs_diff_first_version=r["max_abs_diff_first_version"],
         layouts=r["layouts"])
+
+
+def _wide_ctas(layouts, C=17):
+    """{LB: CTAs a SM} of the wide layouts in a {LB: (layout, CH, G)}."""
+    from witch_tpu_torch.ops.pairhmm import wide_ctas_per_sm
+    return {lb: wide_ctas_per_sm(v[1], v[2], C) for lb, v in layouts.items()
+            if v[0] == 2}
+
+
+def phase_embed_wide(tmp, dev, result):
+    """5w: dnawide's backbone embedding on the wide layout: the 2,400
+    sequence-anchor pairs of DNAWIDE_EMBED backbone sequences of phase
+    4w's data (~7,000 residues each) through the kernel; its ms beside
+    the first version's on the same calls (once each, after a warm-up
+    for the kernel), the wide instances' registers without spills (5c's
+    ptxas), the layout and CTAs a SM at each width, the bound, and
+    DNAWIDE_EMBED_PLAIN seeded pairs through kernel and plain within 2e-4
+    nats a residue."""
+    import numpy as np
+    from witch_tpu_torch import _build
+
+    say("== phase 5w: dnawide's backbone embedding (%d sequences) on the "
+        "pair-HMM kernel's wide layout" % DNAWIDE_EMBED)
+    tool = _pairhmm_tool()
+    wide = [r for r in result["pairhmm"]["ptxas"]
+            if r["kernel"].startswith("pairhmm_wide_kernel")]
+    for r in wide:
+        say("  ptxas %s: %d registers, spill stores %d B, loads %d B"
+            % (r["kernel"], r["registers"], r["spill_stores"],
+               r["spill_loads"]))
+    from witch_tpu_torch.ops.pairhmm import PHW_CH
+    check(len(wide) == len(PHW_CH) and not any(
+        r["spill_stores"] or r["spill_loads"] for r in wide),
+          "pairhmm: no spills in the %d wide instances" % len(wide))
+    t0 = time.time()
+    codes, al = tool.backbone_codes(DNAWIDE_EMBED, data=dnawide_data(tmp))
+    n0 = _build.LAUNCHES["pairhmm"]
+    E_k, calls = tool.record_calls(codes, al, dev)
+    n_k, wall = _build.LAUNCHES["pairhmm"] - n0, time.time() - t0
+    n, A = E_k.shape
+    lens = [len(c) for c in codes]
+    r = tool.time_calls(calls, 1, plain=False, first=True, first_warm=False)
+    ctas = _wide_ctas({int(k): v for k, v in r["layouts"].items()})
+    b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
+    check(np.isfinite(E_k).all() and n == DNAWIDE_EMBED
+          and all(v[0] == 2 for v in r["layouts"].values()),
+          "pairhmm: dnawide embedding [%d, %d] (%d pairs of %d-%d "
+          "residues) in %d launches (%.2f s with the host's part), the wide "
+          "layout at every width (LB: layout, CH, G %s; CTAs a SM %s)"
+          % (n, A, n * A, min(lens), max(lens), n_k, wall, r["layouts"],
+             ctas))
+    smi = smi_line()
+    say("  %d pairs: kernel %.3f ms, the first version %.3f ms on the same "
+        "calls (max |d log-odds| %.3g); %.4g cells, bound %.4f ms (%s); "
+        "%s" % (n * A, r["ms"], r["ms_first_version"],
+                r["max_abs_diff_first_version"], r["cells"], b_ms, b_by,
+                smi))
+    check(r["ms"] < r["ms_first_version"],
+          "pairhmm: the wide layout faster than the first version on the "
+          "same calls (%.3f < %.3f ms)" % (r["ms"], r["ms_first_version"]))
+    sub = tool.subsample(calls, DNAWIDE_EMBED_PLAIN, seed=5)
+    rs = tool.time_calls(sub, 1, plain=True, plain_warm=False)
+    check(rs["max_abs_err_per_residue"] <= 2e-4,
+          "pairhmm: %d seeded dnawide pairs, kernel vs plain max |d "
+          "log-odds| %.3g nats, %.3g a residue <= 2e-4 (kernel %.3f ms, "
+          "plain %.1f ms on them)"
+          % (sum(len(c[1]) for c in sub), rs["max_abs_err_logodds"],
+             rs["max_abs_err_per_residue"], rs["ms"], rs["plain_ms"]))
+    result["pairhmm_dnawide_embed"] = dict(
+        max_abs_err=rs["max_abs_err_per_residue"], ms=r["ms"],
+        plain_ms=rs["plain_ms"], plain_pairs=sum(len(c[1]) for c in sub),
+        ms_plain_pairs=rs["ms"], cells=r["cells"], bound_ms=b_ms,
+        bound_by=b_by, launches=n_k, pairs=n * A,
+        ms_first_version=r["ms_first_version"],
+        max_abs_diff_first_version=r["max_abs_diff_first_version"],
+        layouts=r["layouts"], ctas_per_sm=ctas, card=smi)
+
+
+def phase_scenario_a_long(tmp, rec, dev, result):
+    """5e: scenario A end to end on SCEN_A_LONG (~1,670-residue sequences)
+    with WITCH_TPU_DEVICE_EMBED=1: phase 5's checks, its rows against
+    ref_scenA_long, the pair-HMM kernel launched on the wide layout at
+    every call; then the path's own embedding calls replayed: the wide
+    layout's ms beside the first version's on the same calls, plain's
+    (its one call) within 2e-4 nats a residue, and the bound."""
+    import witch_tpu_torch.ops.pairhmm as ph
+    tool = _pairhmm_tool()
+    orig_lay, orig_fn, seen, calls = ph.pairhmm_layout, \
+        ph.pairhmm_forward_logodds, {}, []
+
+    def layout(C, LB):
+        seen[LB] = orig_lay(C, LB)
+        return seen[LB]
+
+    def fn(*args, **kw):
+        calls.append(args)
+        return orig_fn(*args, **kw)
+
+    n_full, n_frag, cols, seed, backbone = SCEN_A_LONG
+    os.environ["WITCH_TPU_DEVICE_EMBED"] = "1"
+    ph.pairhmm_layout, ph.pairhmm_forward_logodds = layout, fn
+    try:
+        launches = phase_scenario_a(
+            tmp, rec, "5e: scenario A on %d-column sequences with "
+            "WITCH_TPU_DEVICE_EMBED=1" % cols, "scenA_long_out",
+            (n_full, n_frag, cols, seed), backbone, SCEN_A_LONG_JAX)
+    finally:
+        del os.environ["WITCH_TPU_DEVICE_EMBED"]
+        ph.pairhmm_layout, ph.pairhmm_forward_logodds = orig_lay, orig_fn
+    pairs = sum(len(c[1]) for c in calls)
+    check(launches["pairhmm"] > 0 and seen
+          and all(v[0] == 2 for v in seen.values()),
+          "5e: the pair-HMM kernel launched %d times on %d pairs, the wide "
+          "layout at every call (LB: layout, CH, G %s; CTAs a SM %s)"
+          % (launches["pairhmm"], pairs, seen, _wide_ctas(seen)))
+    r = tool.time_calls(calls, 3, first=True, plain_warm=False)
+    b_ms, b_by = bound_ms("pairhmm", r["cells"], r["bytes"])
+    smi = smi_line()
+    say("  5e's %d embedding pairs replayed: wide layout %.3f ms, the first "
+        "version %.3f ms on the same calls (max |d log-odds| %.3g), plain "
+        "%.1f ms; %.4g cells, bound %.4f ms (%s); %s"
+        % (pairs, r["ms"], r["ms_first_version"],
+           r["max_abs_diff_first_version"], r["plain_ms"], r["cells"], b_ms,
+           b_by, smi))
+    check(r["max_abs_err_per_residue"] <= 2e-4,
+          "5e: the path's embedding, kernel vs plain max |d log-odds| %.3g "
+          "nats, %.3g a residue <= 2e-4"
+          % (r["max_abs_err_logodds"], r["max_abs_err_per_residue"]))
+    result["pairhmm_scenario_a_long"] = dict(
+        max_abs_err=r["max_abs_err_per_residue"], ms=r["ms"],
+        plain_ms=r["plain_ms"], cells=r["cells"], bound_ms=b_ms,
+        bound_by=b_by, launches=launches["pairhmm"], pairs=pairs,
+        ms_first_version=r["ms_first_version"],
+        max_abs_diff_first_version=r["max_abs_diff_first_version"],
+        layouts=r["layouts"], card=smi)
+    return launches
 
 
 def main():
@@ -2389,8 +2570,11 @@ def main():
         timed(phase_null2, rec, dev, result, "5b: null2 kernel vs plain, "
               "scenario A gate envelopes", "null2_scenario_a", 1024, False)
         timed(phase_embed, tmp, dev, result)
+        timed(phase_embed_wide, tmp, dev, result)
         paths["scenario_a_device_embed"] = timed(phase_scenario_a_embed,
                                                  tmp, rec)
+        paths["scenario_a_long"] = timed(phase_scenario_a_long, tmp, rec,
+                                         dev, result)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2437,20 +2621,27 @@ def main():
             extras += ("bound_by", "pairs")
         if name == "pairhmm":
             # the first version's ms on the same calls, the layout (layout,
-            # CH, rows and codes in shared memory) at each width, and each
-            # instance's registers, spills and warps a SM
+            # CH, G) at each width, and each instance's registers, spills
+            # and warps a SM
             k.update({x: r[x] for x in (
                 "pairs", "max_abs_err_logodds", "ms_first_version",
                 "max_abs_diff_first_version", "layouts")})
+            # every width's layout, the register kernel's (5c) and the
+            # wide layout's (5w, 5e)
+            for t in ("dnawide_embed", "scenario_a_long"):
+                k["layouts"].update(result.get("pairhmm_" + t, {}).get(
+                    "layouts", {}))
             k["ptxas"] = {p["kernel"]: [p["registers"], p["spill_stores"],
                                         p["spill_loads"], p["warps_per_sm"]]
                           for p in r["ptxas"]}
             extras += ("bound_by", "pairs", "cells", "ms_first_version",
-                       "max_abs_diff_first_version", "layouts")
+                       "max_abs_diff_first_version", "layouts",
+                       "ctas_per_sm", "plain_pairs", "ms_plain_pairs")
         for tag in ("wide", "full_search", "full_search_dna", "2f_amino500",
                     "4d_dna1k", "4e_dna1k", "bench", "scenario_a",
                     "dna1k_backbone", "4wd_dnawide", "dnawide", "4w_dnawide",
-                    "full_search_dnawide"):
+                    "full_search_dnawide", "dnawide_embed",
+                    "scenario_a_long"):
             r2 = result.get("%s_%s" % (name, tag))
             if r2:
                 k.update({"ms_" + tag: r2["ms"],

@@ -1,8 +1,9 @@
 """The JAX package's rows that chip_smoke.py holds the port's against on
 the card (tests/golden/, made with JAX_PLATFORMS=cpu python -m witch_tpu;
 commands in PERF.md): scenario A's masked rows (phases 5 and 5d), dna1k
-scenario C's query rows (4b), amino500 -m old-witch's query rows (3c)
-and the 7,110-column dnawide backbone's query rows (4w). Each golden
+scenario C's query rows (4b), amino500 -m old-witch's query rows (3c),
+the 7,110-column dnawide backbone's query rows (4w) and scenario A's
+masked rows on ~1,670-residue sequences (5e). Each golden
 names exactly the sequences of the input that chip_smoke.py regenerates
 (none ignored by the JAX run), and its rows are flush."""
 
@@ -39,6 +40,19 @@ def _scen_a_names(tmp):
         [n for n, _ in read_fasta(os.path.join(d, "queries.fasta"))]
 
 
+def _scen_a_long(tmp):
+    """chip_smoke.py 5e's data: make_scale_dataset.py --n 120 --queries
+    30 --cols 1920 --seed 20261018."""
+    return _dataset(tmp, 120, 30, 20261018, cols=1920)
+
+
+def _scen_a_long_names(tmp):
+    d = _scen_a_long(tmp)
+    return [n for n, _ in read_fasta(os.path.join(
+        d, "backbone.aln.fasta.gz"))] + \
+        [n for n, _ in read_fasta(os.path.join(d, "queries.fasta"))]
+
+
 def _dna1k_queries(tmp):
     d = _dataset(tmp, 1000, 1000, 20260820)
     return [n for n, _ in read_fasta(os.path.join(d, "queries.fasta"))]
@@ -65,6 +79,7 @@ GOLDENS = {
     "ref_dna1k_c.queries.masked.fasta.gz": (_dna1k_queries, 1000),
     "ref_amino500_ow.queries.masked.fasta.gz": (_amino500_queries, 500),
     "ref_dnawide.queries.masked.fasta.gz": (_dnawide_queries, 100),
+    "ref_scenA_long.aligned.masked.fasta.gz": (_scen_a_long_names, 150),
 }
 
 
@@ -103,3 +118,19 @@ def test_dnawide_golden_width_is_the_backbone(tmp_path):
     rows = _rows("ref_dnawide.queries.masked.fasta.gz")
     assert len(bb) == 200 and len(bb[0][1]) == 7110
     assert {len(s) for _, s in rows} == {len(bb[0][1])}
+
+
+def test_scen_a_long_golden_width(tmp_path):
+    """The long scenario A golden: 150 flush masked rows, 1,765 columns
+    wide (the JAX package's backbone alignment of the 70 sequences it
+    picked), from an input whose 120 full-length sequences are all wider
+    than the pair-HMM register kernel's widest B (1,535): each anchor of
+    the embedding takes the wide layout."""
+    d = _scen_a_long(str(tmp_path))
+    full = [s.replace("-", "") for _, s in read_fasta(os.path.join(
+        d, "backbone.aln.fasta.gz"))]
+    assert len(full) == 120
+    assert 1535 < min(len(s) for s in full) <= max(len(s) for s in full) \
+        < 1800
+    rows = _rows("ref_scenA_long.aligned.masked.fasta.gz")
+    assert {len(s) for _, s in rows} == {1765}

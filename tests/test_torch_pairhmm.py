@@ -106,6 +106,34 @@ def test_device_embedding_matches_jax(chunk):
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
 
 
+def test_device_embedding_long_matches_jax():
+    """The port's _device_embedding on sequences of 1,600-1,800 residues
+    (scenario A's long input, whose anchors take the kernel's wide
+    layout on the card) against the JAX package's, within 2e-4."""
+    from witch_tpu.backbone_consistency import _device_embedding as jax_emb
+    from witch_tpu_torch.backbone_consistency import _device_embedding
+    from witch_tpu_torch.ops.pairhmm import pairhmm_layout
+    em = _emission_odds(ALPHABETS["dna"], 0.30)
+    rng = np.random.default_rng(18)
+    root = rng.integers(0, 4, 1800)
+    codes = []
+    for _ in range(7):
+        s = np.where(rng.random(1800) < 0.15, rng.integers(0, 4, 1800),
+                     root)
+        cut = rng.integers(0, 200)
+        codes.append(np.ascontiguousarray(s[cut // 2:1800 - (cut + 1) // 2],
+                                          np.int32))
+    lens = [len(c) for c in codes]
+    assert 1600 <= min(lens) and max(lens) <= 1800
+    anchors = [1, 3, 6]
+    assert pairhmm_layout(em.shape[0], max(lens[a] for a in anchors))[0] \
+        == 2
+    want = jax_emb(codes, anchors, em, 0.02, 0.75)
+    got = _device_embedding(codes, anchors, em, 0.02, 0.75, "cpu")
+    assert got.shape == (7, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
 def test_device_embedding_one_call_equals_chunks(monkeypatch):
     """Every pair in one call (the default) gives exactly the E of chunks
     of 1,024 and of 5 on the CPU: each pair's log-odds depends only on
@@ -155,48 +183,69 @@ def test_anchor_embedding_device_flag():
 def test_kernel_layout_by_width():
     """Which kernel runs, by B's width: the register kernel up to 32 x 48
     - 1 = 1,535 columns (the repo's anchors, 1,271-1,357 residues, at CH
-    44), then the first version, its rows and codes in shared memory,
-    then its rows in device memory, then both."""
+    44), the wide layout from 1,536 (scenario A's long anchors, ~1,670,
+    and dnawide's, ~7,100) up to its cap PH_WIDE_LB_MAX, then the first
+    version; the first version's own steps (rows and codes in shared
+    memory, then its rows in device memory, then both) through
+    first_version_smem."""
     from witch_tpu_torch import _build
     from witch_tpu_torch.ops.pairhmm import (PH_CH, PH_WARPS,
+                                             PH_WIDE_LB_MAX,
                                              first_version_smem,
                                              pairhmm_layout)
     C = 17
-    assert pairhmm_layout(C, 1357) == (0, 44, False, False)
+    assert pairhmm_layout(C, 1357) == (0, 44, 1)
     widest = 32 * PH_CH[-1] - 1
-    assert pairhmm_layout(C, widest) == (0, PH_CH[-1], False, False)
-    assert pairhmm_layout(C, widest + 1) == (1, 0, True, True)
-    assert pairhmm_layout(C, 20000) == (1, 0, False, True)
-    assert pairhmm_layout(C, 60000) == (1, 0, False, False)
+    assert pairhmm_layout(C, widest) == (0, PH_CH[-1], 1)
+    for LB in (widest + 1, widest + 2, 1686, 7100, PH_WIDE_LB_MAX):
+        lay, ch, g = pairhmm_layout(C, LB)
+        assert lay == 2 and 32 * g * ch >= LB + 1 > 32 * (g - 1) * ch, LB
+    assert PH_WIDE_LB_MAX >= 8191
+    # CH 24 at every width, G = ceil((LB + 1) / 768)
+    assert [pairhmm_layout(C, LB) for LB in (1536, 1537, 2303, 2304, 7100,
+                                             PH_WIDE_LB_MAX)] == [
+        (2, 24, 3), (2, 24, 3), (2, 24, 3), (2, 24, 4), (2, 24, 10),
+        (2, 24, 11)]
+    for LB in (PH_WIDE_LB_MAX + 1, 20000, 60000):
+        assert pairhmm_layout(C, LB) == (1, 0, 0)
+    assert first_version_smem(C, widest + 1) == (True, True)
+    assert first_version_smem(C, 20000) == (False, True)
+    assert first_version_smem(C, 60000) == (False, False)
     free = _build.SMEM_ROWS_MAX - 4 * C * C
     widest_smem = (free - 12 * PH_WARPS) // (13 * PH_WARPS)
-    assert pairhmm_layout(C, widest_smem) == (1, 0, True, True)
-    assert pairhmm_layout(C, widest_smem + 1) == (1, 0, False, True)
+    assert first_version_smem(C, widest_smem) == (True, True)
+    assert first_version_smem(C, widest_smem + 1) == (False, True)
     # the first version's own steps at the register kernel's widths
     assert first_version_smem(C, 1400) == (True, True)
     assert first_version_smem(C, widest) == (True, True)
-    # the register kernel holds B's codes as byte offsets 4 c: C <= 63
-    assert pairhmm_layout(63, 100)[:2] == (0, 8)
-    assert pairhmm_layout(64, 100) == (1, 0, True, True)
+    # the register and wide kernels hold B's codes as byte offsets 4 c:
+    # C <= 63
+    assert pairhmm_layout(63, 100) == (0, 8, 1)
+    assert pairhmm_layout(63, 7100)[0] == 2
+    assert pairhmm_layout(64, 100) == (1, 0, 0)
+    assert pairhmm_layout(64, 7100) == (1, 0, 0)
 
 
 @pytest.mark.parametrize("ch", list(range(8, 49, 4)))
 def test_register_layout_at_each_boundary(ch):
     """LB = 32 CH - 1 is the widest B a CH instance takes (LB + 1 columns
     from j = 0); 32 CH and 32 CH + 1 go to the next instance, past the
-    last to the first version; the instance below stops at 32 (CH - 4)
+    last to the wide layout; the instance below stops at 32 (CH - 4)
     - 1."""
     from witch_tpu_torch.ops.pairhmm import PH_CH, pairhmm_layout
     assert ch in PH_CH
     C = 17
     nxt = [c for c in PH_CH if c > ch]
-    assert pairhmm_layout(C, 32 * ch - 1)[:2] == (0, ch)
+    assert pairhmm_layout(C, 32 * ch - 1) == (0, ch, 1)
     for LB in (32 * ch, 32 * ch + 1):
-        assert pairhmm_layout(C, LB)[:2] == ((0, nxt[0]) if nxt else (1, 0))
+        if nxt:
+            assert pairhmm_layout(C, LB) == (0, nxt[0], 1)
+        else:
+            assert pairhmm_layout(C, LB)[0] == 2
     if ch > PH_CH[0]:
-        assert pairhmm_layout(C, 32 * (ch - 4))[:2] == (0, ch)
+        assert pairhmm_layout(C, 32 * (ch - 4)) == (0, ch, 1)
     else:
-        assert pairhmm_layout(C, 0)[:2] == (0, ch)
+        assert pairhmm_layout(C, 0) == (0, ch, 1)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -211,52 +260,79 @@ def test_cpu_tensors_take_the_plain_version():
                                   _plain(cA, lA, cB, lB, em, 0.01, 0.75))
 
 
+def _wide_steps(C=4):
+    """The widths where the wide layout's pick (CH, G) changes, from
+    1,536 to its cap: each first width of a pick and the width before."""
+    from witch_tpu_torch.ops.pairhmm import PH_WIDE_LB_MAX, pairhmm_layout
+    out, prev = [], None
+    for LB in range(32 * 48, PH_WIDE_LB_MAX + 1):
+        pick = pairhmm_layout(C, LB)
+        if pick != prev:
+            out += [LB - 1, LB] if prev else [LB]
+            prev = pick
+    return sorted(set(out + [PH_WIDE_LB_MAX]))
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    """Both kernels against the plain version on the card: the register
+def test_kernel_matches_plain_on_the_card(monkeypatch):
+    """The kernels against the plain version on the card: the register
     kernel at every CH instance, B at its widest (LB = 32 CH - 1, lengths
     down to the instance below), and at scenario-A lengths (1,200-1,400
     DNA residues, 64 pairs) also the first version (first_version=True)
     against it, and at t_gg + t_mg > 1 (Y past B's end kept out of the
-    row max); the first version alone where rows are too wide for registers (1,536
-    and 4,000 columns: rows and codes in shared memory), too wide for
-    shared memory (20,000: rows in a device buffer) and wider still
-    (60,000: both in device memory)."""
+    row max); the wide layout at 1,536 and 1,537, at each step of its
+    pick (CH, G), at 7,100 (dnawide's anchors) and at its cap, with
+    pairs whose B ends more than a warp's columns before the launch's
+    (warps past B), at eps 0.99 (the carry across warps), and every wide
+    instance at its most warps; the first version where rows are wider
+    than the wide layout's cap (8,192 and 20,000: rows in a device
+    buffer) and wider still (60,000: rows and codes in device memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the pair-HMM kernel has no CPU "
                     "mode")
+    import witch_tpu_torch.ops.pairhmm as ph
     from witch_tpu_torch import _build
-    from witch_tpu_torch.ops.pairhmm import PH_CH, pairhmm_layout
     # (alphabet, pairs, LA, LB, least len A, least len B, first version,
-    #  delta)
-    cases = [("dna", 6, 3 * ch, 32 * ch - 1, 1, 32 * ch - 128, False, 0.02)
-             for ch in PH_CH]
-    cases += [("dna", 64, 1400, 1400, 1200, 1200, False, 0.02),
-              ("dna", 64, 1400, 1400, 1200, 1200, True, 0.02),
+    #  delta, eps, forced (CH, G) of the wide layout)
+    cases = [("dna", 6, 3 * ch, 32 * ch - 1, 1, 32 * ch - 128, False, 0.02,
+              0.75, None) for ch in ph.PH_CH]
+    cases += [("dna", 64, 1400, 1400, 1200, 1200, False, 0.02, 0.75, None),
+              ("dna", 64, 1400, 1400, 1200, 1200, True, 0.02, 0.75, None),
               # t_gg + t_mg > 1: Y past LB would exceed the row's max
-              ("dna", 16, 600, 639, 300, 500, False, 0.3),
-              ("amino", 8, 300, 1536, 200, 1200, False, 0.02),
-              ("dna", 8, 300, 4000, 200, 3000, False, 0.02),
-              ("amino", 8, 300, 20000, 200, 200, False, 0.02),
-              ("dna", 4, 100, 60000, 90, 90, False, 0.02)]
-    for alpha, P, LA, LB, lo_a, lo_b, first, delta in cases:
+              ("dna", 16, 600, 639, 300, 500, False, 0.3, 0.75, None),
+              ("amino", 8, 300, 1536, 200, 1200, False, 0.02, 0.75, None),
+              ("dna", 16, 400, 1686, 300, 1647, False, 0.02, 0.75, None),
+              ("dna", 16, 400, 1686, 300, 1647, False, 0.02, 0.99, None),
+              ("dna", 8, 300, 7100, 200, 2000, False, 0.02, 0.75, None),
+              ("dna", 8, 300, 7100, 200, 6800, False, 0.02, 0.99, None),
+              ("dna", 8, 200, 8192, 100, 8000, False, 0.02, 0.75, None),
+              ("amino", 8, 300, 20000, 200, 200, False, 0.02, 0.75, None),
+              ("dna", 4, 100, 60000, 90, 90, False, 0.02, 0.75, None)]
+    cases += [("dna", 4, 120, LB, 60, max(1, LB - 700), False, 0.02, 0.75,
+               None) for LB in _wide_steps()]
+    cases += [("dna", 4, 120, min(ph.PH_WIDE_LB_MAX,
+                                  32 * ph.phw_gmax(ch) * ch - 1), 60, 1500,
+               False, 0.02, 0.75, (ch, ph.phw_gmax(ch))) for ch in ph.PHW_CH]
+    pick = ph.pairhmm_layout
+    for alpha, P, LA, LB, lo_a, lo_b, first, delta, eps, forced in cases:
         em = _emission_odds(ALPHABETS[alpha], 0.3)
         cA, lA, cB, lB = _batch(7, P, LA, LB, lo_a, max(1, lo_b), alpha)
         args = [torch.from_numpy(x).cuda() for x in (cA, lA, cB, lB)]
         emt = torch.from_numpy(em.astype(np.float32)).cuda()
+        want = (2,) + forced if forced else pick(em.shape[0], LB)
+        monkeypatch.setattr(ph, "pairhmm_layout", lambda C, L: want)
         n0 = _build.LAUNCHES["pairhmm"]
-        k = port_logodds(*args, emt, delta, 0.75, first_version=first)
+        k = port_logodds(*args, emt, delta, eps, first_version=first)
         torch.cuda.synchronize()
         assert _build.LAUNCHES["pairhmm"] == n0 + 1
-        p = pairhmm_forward_logodds_plain(*args, emt, delta, 0.75)
+        p = pairhmm_forward_logodds_plain(*args, emt, delta, eps)
         norm = np.minimum(lA, lB).astype(np.float64)
         err = np.abs(k.cpu().numpy() - p.cpu().numpy()) / norm
-        want = pairhmm_layout(em.shape[0], LB)[0]
         assert np.isfinite(k.cpu().numpy()).all()
-        assert err.max() < 2e-4, (alpha, LB, first, want, err.max())
+        assert err.max() < 2e-4, (alpha, LB, first, want, eps, err.max())
         if first:
-            reg = port_logodds(*args, emt, delta, 0.75).cpu().numpy()
-            assert want == 0 and np.abs(reg - k.cpu().numpy()).max() \
+            reg = port_logodds(*args, emt, delta, eps).cpu().numpy()
+            assert want[0] == 0 and np.abs(reg - k.cpu().numpy()).max() \
                 <= 1e-4, "register kernel vs the first version"
 
 
@@ -274,13 +350,19 @@ def _bench_tool():
 
 def test_bench_tool_reads_ptxas_and_occupancy():
     """tools/pairhmm_bench.py's reading of nvcc -Xptxas -v (which
-    chip_smoke.py 5c checks for spills) and the warps a SM that
-    registers allow on sm_90 (65,536 registers, allocated per warp in
-    units of 256)."""
+    chip_smoke.py 5c and 5w check for spills) and the warps a SM that
+    registers allow on sm_90 (each scheduler's 16,384 registers,
+    allocated per warp in units of 256; the wide instances' counted a
+    warp at a time, the CTAs of G warps fitting that many over G)."""
     tool = _bench_tool()
     reg = "_Z18pairhmm_reg_kernelILi44EEvPKiS1_PKhS1_PKfPfiiiffff"
     first = "_Z14pairhmm_kernelPKiS0_PKhS0_PKfPfS5_iiiiiffff"
+    wide = "_Z19pairhmm_wide_kernelILi24EEvPKiS1_PKhS1_PKfPfiiiiffff"
     text = "\n".join([
+        "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % wide,
+        "ptxas info    : Function properties for %s" % wide,
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 126 registers, 432 bytes cmem[0]",
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % reg,
         "ptxas info    : Function properties for %s" % reg,
@@ -292,12 +374,19 @@ def test_bench_tool_reads_ptxas_and_occupancy():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 448 bytes cmem[0]"])
     assert tool.parse_ptxas(text) == [
+        dict(kernel="pairhmm_wide_kernel<24>", stack=0, spill_stores=0,
+             spill_loads=0, registers=126, warps_per_sm=16),
         dict(kernel="pairhmm_reg_kernel<44>", stack=40, spill_stores=116,
-             spill_loads=76, registers=179, warps_per_sm=11),
+             spill_loads=76, registers=179, warps_per_sm=8),
         dict(kernel="pairhmm_kernel", stack=0, spill_stores=0,
              spill_loads=0, registers=40, warps_per_sm=48)]
     assert [tool.warps_per_sm(r) for r in (60, 168, 183, 202, 255)] == \
-        [32, 12, 11, 9, 8]
+        [32, 12, 8, 8, 8]
+    # the wide instances at their CTAs of G warps: the card's occupancy
+    # (tools/pairhmm_bench.py --layouts --widths, ctas_per_sm) at CH 24
+    # (126 registers) G 8 and 9, CH 20 (99) G 9, CH 32 (140) G 7
+    assert [tool.warps_per_sm(r, g) // g for r, g in (
+        (126, 8), (126, 9), (99, 9), (140, 7))] == [2, 1, 1, 1]
 
 
 def test_bench_tool_backbone_sizes(tmp_path):
@@ -319,3 +408,49 @@ def test_bench_tool_backbone_sizes(tmp_path):
     codes, _ = tool.backbone_codes(1000, data=str(data))
     lens = [len(c) for c in codes]
     assert len(codes) == 1000 and 1200 < min(lens) <= max(lens) < 1535
+
+
+def test_bench_tool_long_replays_and_layouts(tmp_path):
+    """The bench's replays on the wide layout from the command line:
+    --n 120 --queries 30 --cols 1920 --seed 20261018 --backbone 70 is
+    scenario A's long input (70 sequences of 1,647-1,686 residues, 1,680
+    pairs with 24 anchors) and --data DIR reads a directory
+    make_scale_dataset.py wrote; --layouts times the wide candidates
+    (--widths needs it), and subsample cuts recorded calls to a seeded
+    share of their pairs at the same B width."""
+    import subprocess
+    import sys
+    tool = _bench_tool()
+    a = tool.parse_args(["--n", "120", "--queries", "30", "--cols", "1920",
+                         "--seed", "20261018", "--backbone", "70",
+                         "--layouts"])
+    assert (a.n, a.queries, a.cols, a.seed, a.backbone, a.layouts,
+            a.data, a.widths) == (120, 30, 1920, 20261018, 70, True, None,
+                                  None)
+    with pytest.raises(SystemExit):
+        tool.parse_args(["--widths", "1536:8192:256"])
+    assert tool.parse_args(["--layouts", "--widths", "1536:8192:256"]) \
+        .widths == "1536:8192:256"
+    codes, al = tool.backbone_codes(70, n=120, queries=30, seed=20261018,
+                                    cols=1920)
+    lens = [len(c) for c in codes]
+    assert len(codes) == 70 and 1535 < min(lens) <= max(lens) < 1700
+    data = tmp_path / "long"
+    subprocess.run([sys.executable, tool.os.path.join(
+        tool.ROOT, "scripts", "make_scale_dataset.py"), "--n", "120",
+        "--queries", "30", "--cols", "1920", "--seed", "20261018", "--out",
+        str(data)], check=True, capture_output=True, timeout=300)
+    a = tool.parse_args(["--data", str(data), "--backbone", "70"])
+    again, _ = tool.backbone_codes(a.backbone, data=a.data)
+    assert all(np.array_equal(x, y) for x, y in zip(codes, again))
+    P, LA, LB = 10, 30, 1700
+    args = (torch.zeros((P, LA), dtype=torch.int32),
+            torch.arange(1, P + 1, dtype=torch.int32),
+            torch.zeros((P, LB), dtype=torch.int32),
+            torch.full((P,), LB, dtype=torch.int32),
+            torch.ones((4, 4)), 0.02, 0.75)
+    sub = tool.subsample([args, args], 6, seed=1)
+    assert [len(c[1]) for c in sub] == [3, 3]
+    for c in sub:
+        assert c[2].shape[1] == LB and c[0].shape[1] == int(c[1].max())
+        assert c[4:] == args[4:]

@@ -131,6 +131,9 @@ def lib():
                 [ctypes.c_float] * 4 + [P]
             so.witch_pairhmm_reg.argtypes = [P] * 6 + [I] * 5 + \
                 [ctypes.c_float] * 4 + [P]
+            so.witch_pairhmm_wide.argtypes = [P] * 6 + [I] * 6 + \
+                [ctypes.c_float] * 4 + [P]
+            so.witch_pairhmm_wide_ctas_per_sm.argtypes = [I] * 3 + [P]
             so.witch_cluster_probe.argtypes = [I] * 4 + [P] * 3
             so.witch_cluster_probe_active.argtypes = [I]
             for fn in (so.witch_cluster_probe, so.witch_cluster_probe_active,
@@ -140,7 +143,8 @@ def lib():
                        so.witch_flank_warp, so.witch_flank_cluster,
                        so.witch_flank_cluster_active,
                        so.witch_null2_ctas_per_sm, so.witch_pairhmm,
-                       so.witch_pairhmm_reg):
+                       so.witch_pairhmm_reg, so.witch_pairhmm_wide,
+                       so.witch_pairhmm_wide_ctas_per_sm):
                 fn.restype = I
             _lib = so
         return _lib

@@ -31,7 +31,16 @@ from .. import _build
 
 PH_WARPS = 4                 # pairs (warps) per CTA of the first version
 PH_CH = tuple(range(8, 49, 4))   # columns a lane, the register instances
-PH_REG_C_MAX = 63            # the register kernel's codes are bytes 4 c
+PH_REG_C_MAX = 63            # the register kernels' codes are bytes 4 c
+PHW_CH = tuple(range(8, 33, 4))  # columns a lane, the wide instances
+PHW_COLS = 8192              # columns j = 0..LB the wide instances reach
+PH_WIDE_LB_MAX = PHW_COLS - 1    # the widest B of the wide layout
+# the wide instance the layout takes at every width: of the seven, the
+# one whose time came nearest the best candidate's over B 1,536-8,064
+# in steps of 128 (tools/pairhmm_bench.py --layouts --widths
+# 1536:8192:128, 2,400 pairs of 256 rows; H100 80GB HBM3, 700 W): 1.02x
+# the best on average, 1.23x at worst (PERF.md)
+PHW_PICK_CH = 24
 TINY = 1e-30                 # floor of the final total (the JAX version's)
 
 
@@ -41,20 +50,56 @@ def transitions(delta: float, eps: float):
                  (1.0 - 2.0 * delta, delta, 1.0 - eps, eps))
 
 
+def phw_gmax(ch: int) -> int:
+    """The most warps a CTA of the wide CH instance takes (csrc/
+    pairhmm.cu:PhwMax): enough for PHW_COLS columns."""
+    return -(-PHW_COLS // (32 * ch))
+
+
+def wide_candidates(LB: int):
+    """[(CH, G)] of every wide instance that holds LB + 1 columns: G =
+    ceil((LB + 1) / 32 CH) warps, at most phw_gmax(CH); none above
+    PH_WIDE_LB_MAX."""
+    out = []
+    if LB > PH_WIDE_LB_MAX:
+        return out
+    for ch in PHW_CH:
+        g = -(-(LB + 1) // (32 * ch))
+        if g <= phw_gmax(ch):
+            out.append((ch, g))
+    return out
+
+
 def pairhmm_layout(C: int, LB: int):
-    """(layout, CH, rows in shared memory, B's codes in shared memory) for
-    a launch whose B rows are LB wide.
+    """(layout, CH, G) for a launch whose B rows are LB wide.
 
     Layout 0, the register kernel (csrc/pairhmm.cu:pairhmm_reg_kernel):
-    the smallest CH of PH_CH with 32 CH >= LB + 1 columns; rows and codes
-    in registers as byte offsets 4 c into em [C, C + 1] in shared memory
-    (code C, a zero column, marks B's empty columns), so C <= 63. Layout 1,
-    the first version (pairhmm_kernel), for wider rows: CH 0, and where
-    its rows and codes go (first_version_smem)."""
-    ch = next((c for c in PH_CH if 32 * c >= LB + 1), 0)
-    if ch and C <= PH_REG_C_MAX:
-        return 0, ch, False, False
-    return (1, 0) + first_version_smem(C, LB)
+    one warp a pair (G 1), the smallest CH of PH_CH with 32 CH >= LB + 1
+    columns; rows and codes in registers as byte offsets 4 c into em
+    [C, C + 1] in shared memory (code C, a zero column, marks B's empty
+    columns), so C <= 63. Layout 2, the wide layout (pairhmm_wide_kernel):
+    one CTA of G warps a pair, CH = PHW_PICK_CH columns a lane and G =
+    ceil((LB + 1) / 32 CH), for B from 32 x 48 = 1,536 up to
+    PH_WIDE_LB_MAX residues at C <= 63. Layout 1, the first version
+    (pairhmm_kernel; CH 0, G 0), above that or at C > 63; where its rows
+    and codes go: first_version_smem."""
+    if C <= PH_REG_C_MAX:
+        ch = next((c for c in PH_CH if 32 * c >= LB + 1), 0)
+        if ch:
+            return 0, ch, 1
+        g = dict(wide_candidates(LB)).get(PHW_PICK_CH)
+        if g:
+            return 2, PHW_PICK_CH, g
+    return 1, 0, 0
+
+
+def wide_ctas_per_sm(ch: int, g: int, C: int) -> int:
+    """CTAs of the wide (CH, G) instance one SM of the card keeps
+    resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().witch_pairhmm_wide_ctas_per_sm(
+        ch, g, C, ctypes.byref(n)), "pairhmm", count=False)
+    return n.value
 
 
 def first_version_smem(C: int, LB: int):
@@ -158,9 +203,9 @@ def pairhmm_forward_logodds(codesA, lensA, codesB, lensB, em,
     codesB [P, LB] padded residue codes, lensA / lensB [P] their lengths,
     em [C, C] emission odds. CUDA tensors launch the kernel that
     pairhmm_layout picks by LB (first_version=True takes the first
-    version at any width, to time it against the register kernel), its
-    CUDA-event ms added to _build.KERNEL_MS["pairhmm"]; CPU tensors take
-    the plain version."""
+    version at any width, to time it against the others), its CUDA-event
+    ms added to _build.KERNEL_MS["pairhmm"]; CPU tensors take the plain
+    version."""
     dev = _check(codesA, lensA, codesB, lensB)
     if dev.type == "cpu":
         return pairhmm_forward_logodds_plain(codesA, lensA, codesB, lensB,
@@ -181,20 +226,24 @@ def pairhmm_forward_logodds(codesA, lensA, codesB, lensB, em,
     out = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return out
-    lay, ch, rows_smem, codes_smem = pairhmm_layout(C, LB)
-    if first_version and lay == 0:
-        lay, ch = 1, 0
-        rows_smem, codes_smem = first_version_smem(C, LB)
-    rows = None if lay == 0 or rows_smem else torch.empty(
-        P * 3 * (LB + 1), dtype=torch.float32, device=dev)
+    lay, ch, g = (1, 0, 0) if first_version else pairhmm_layout(C, LB)
     t = [ctypes.c_float(v) for v in transitions(delta, eps)]
     lib = _build.lib()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if lay == 1:
+        rows_smem, codes_smem = first_version_smem(C, LB)
+        rows = None if rows_smem else torch.empty(
+            P * 3 * (LB + 1), dtype=torch.float32, device=dev)
     ev[0].record()
     if lay == 0:
         rc = lib.witch_pairhmm_reg(
             cA.data_ptr(), lA.data_ptr(), cB.data_ptr(), lB.data_ptr(),
             em.data_ptr(), out.data_ptr(), ch, P, LA, LB, C, *t,
+            _build.stream_ptr(dev))
+    elif lay == 2:
+        rc = lib.witch_pairhmm_wide(
+            cA.data_ptr(), lA.data_ptr(), cB.data_ptr(), lB.data_ptr(),
+            em.data_ptr(), out.data_ptr(), ch, g, P, LA, LB, C, *t,
             _build.stream_ptr(dev))
     else:
         rc = lib.witch_pairhmm(
