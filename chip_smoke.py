@@ -67,7 +67,15 @@ Phases:
      selection-drift count; the query rows against the JAX
      package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
      equal, at least DNA1K_JAX_MIN, and for a differing row the device
-     and native pre-score rankings of its top models; then (4c) the same
+     and native pre-score rankings of its top models; after 4d and 4e
+     (item 2), (4m) the data mesh
+     (witch_tpu_torch/parallel/mesh.py) over every visible card, on a
+     one-card host over cuda:0 twice (said on its own line): dna1k's two
+     banks on 4's inputs, np.array_equal to 4's single-card bits, each
+     card's kernel ms, then amino500 end to end with the mesh (every
+     other phase runs with WITCH_TPU_NO_MESH=1): 600/600, the mesh
+     logged, one forward launch a bank a card, outputs byte-identical to
+     phase 3's; then (4c) the same
      backbone with --full-search-results 1 on its first 30 queries, a
      grid the prefilter drops pairs of: every query placed or ignored,
      and full_search_replay (the path's flank inputs through kernel and
@@ -138,11 +146,13 @@ Phases:
      layout at every call, and the path's 1,680 embedding pairs replayed
      (the wide layout's ms, the first version's on the same calls,
      plain's within 2e-4 a residue, the bound);
-  6. {"kernels": [...]} JSON (each kernel's launches on the main path,
-     error, ms and plain ms, and its bound: the larger of its operations
-     at 67 TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP
-     at 34 TFLOP/s, its f64 rate, and its bytes, inputs read once and
-     outputs written once, at 3.35 TB/s; OA's entry also the dna1k
+  6. {"kernels": [...]} JSON (each kernel's launches on the main path
+     and on every other path, the mesh's of 4m(b) among them, error, ms
+     and plain ms, and its bound: the larger of its operations at 67
+     TFLOP/s, the H100's f32 rate outside the tensor cores, OA's DP at 34
+     TFLOP/s, its f64 rate, and its bytes, inputs read once and outputs
+     written once, at 3.35 TB/s; forward's entry also 4m(a)'s cards and
+     each card's kernel ms; OA's entry also the dna1k
      replay's and its stored rows' bound, 17 B per state-row; flank's the
      full-search replays', the bound of its outputs and stored specials,
      rows_bytes_ms, and its layout at each width; pairhmm's main path is
@@ -665,7 +675,7 @@ def phase_serve(tmp):
     job; the server is killed at the end whatever happens. The same run
     as a fresh CLI process (WITCH_TPU_NO_DAEMON=1), while the server
     idles, gives what a server job saves."""
-    from witch_tpu_torch.server import server_alive, submit
+    from witch_tpu_torch.server import on_cuda, server_alive, submit
 
     say("== phase 3d: serve: amino500 twice and a bench job")
     jobs = os.path.join(tmp, "jobs")
@@ -706,9 +716,10 @@ def phase_serve(tmp):
             res = submit(jobs, amino_argv(outdir), timeout_s=600,
                          dead_server_s=120)
             wait = time.time() - t1
-            check(res["ok"] and res["device"] == "cuda",
-                  "serve job %d ok on %s (%s)" % (k, res["device"],
-                                                  res.get("error")))
+            check(res["ok"] and on_cuda(res["device"])
+                  and res["cards"] == [res["device"]],
+                  "serve job %d ok on %s, scored on %s (%s)"
+                  % (k, res["device"], res["cards"], res.get("error")))
             same = [open(os.path.join(outdir, f), "rb").read()
                     == open(os.path.join(ref, f), "rb").read()
                     for f in ("aligned.fasta", "aligned.masked.fasta")]
@@ -1162,6 +1173,100 @@ def phase_dna(tmp, rec):
     check(join is not None, "dna1k: the align stage joined the speculative "
           "OA start, %s selection-drift host aligns" % drift)
     dna1k_vs_jax(rec, data, masked, ignored)
+    return launches
+
+
+def mesh_cards():
+    """The cards of phase 4m: every visible card, or on a one-card host
+    cuda:0 twice (the split, the per-card launches and the gather still
+    run); and whether it is the latter."""
+    import torch
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)], False
+    return [torch.device("cuda", 0)] * 2, True
+
+
+def bank_on(bt, d):
+    """bt's tables on card d (bt itself where they lie there)."""
+    from witch_tpu_torch.device import BankTensors
+    if bt.device == d:
+        return bt
+    return BankTensors(em=bt.em.to(d), trans=bt.trans.to(d), M=bt.M,
+                       pad_code=bt.pad_code)
+
+
+def phase_mesh(tmp, calls, bits_single, result):
+    """4m: the data mesh (parallel/mesh.py). (a) dna1k's two banks, the
+    forward calls phase 4 made, scored over the mesh: np.array_equal to
+    the single-card bits phase 4 got, each card's kernel ms, the mesh's
+    wall against one card's on the same call; (b) amino500 end to end
+    with the mesh formed (WITCH_TPU_NO_MESH unset, the mesh's cards as the
+    visible ones): 600/600 rows, the mesh logged, one forward launch a
+    bank a card, outputs byte-identical to phase 3's."""
+    import numpy as np
+    import witch_tpu_torch.parallel.mesh as mesh
+    from witch_tpu_torch.config import Configs
+    from witch_tpu_torch.ops.forward import forward_bits
+
+    cards, twice = mesh_cards()
+    say("== phase 4m: the data mesh over %s" % ", ".join(map(str, cards)))
+    if twice:
+        say("  one card visible: the mesh is formed over cuda:0 twice, so "
+            "that the split, the per-card launches and the gather run")
+    check(len(calls) == 2 and len(bits_single) == 2,
+          "4m: phase 4's two forward calls recorded")
+    r = dict(cards=[str(d) for d in cards], one_card_twice=twice, banks=[])
+    for (bt, codes, lens), ref in zip(calls, bits_single):
+        bts = [bank_on(bt, d) for d in cards]
+        mesh.sharded_forward_bits(bts, codes, lens)         # warm-up
+        t0 = time.time()
+        got, ms = mesh.sharded_forward_bits(bts, codes, lens)
+        wall = time.time() - t0
+        t0 = time.time()
+        one = forward_bits(bt, codes, lens)
+        wall1 = time.time() - t0
+        check(np.array_equal(got, ref) and np.array_equal(one, ref),
+              "4m: dna1k bank Mp=%d H=%d, %d queries over %d cards: bits "
+              "np.array_equal to phase 4's single-card bits"
+              % (bt.Mp, bt.H, len(lens), len(cards)))
+        say("  kernel ms by card: %s; mesh call %.3f s, one card %.3f s"
+            % (", ".join("%s %.2f" % (d, m) for d, m in zip(cards, ms)),
+               wall, wall1))
+        r["banks"].append(dict(Mp=bt.Mp, H=bt.H, queries=len(lens),
+                               kernel_ms_by_card=ms, mesh_s=wall,
+                               one_card_s=wall1))
+    say("== phase 4m(b): amino500 end to end with the mesh")
+    orig, aligner = mesh.visible_cards, list(REC_ALIGNER)
+    mesh.visible_cards = lambda: list(cards)
+    del os.environ["WITCH_TPU_NO_MESH"]
+    try:
+        outdir = os.path.join(tmp, "amino500_mesh")
+        launches = run_amino(outdir, [], "amino500 mesh")
+    finally:
+        # the later phases read phase 4's aligner, not this run's
+        os.environ["WITCH_TPU_NO_MESH"] = "1"
+        mesh.visible_cards = orig
+        REC_ALIGNER[:] = aligner
+    logged = [ln for ln in open(os.path.join(outdir, "log.txt"))
+              if "Scoring on %d-device data mesh" % len(cards) in ln]
+    fwd = [ln.split("\t", 1)[-1].strip() for ln in open(os.path.join(
+        outdir, "runtime_breakdown.txt")) if "device Forward" in ln]
+    check(logged and Configs.scoring_cards == [str(d) for d in cards]
+          and fwd and all("on %d cards" % len(cards) in ln for ln in fwd),
+          "amino500 mesh: 'Scoring on %d-device data mesh' logged, every "
+          "bank scored on the %d cards: %s" % (len(cards), len(cards), fwd))
+    check(launches["forward"] == len(fwd) * len(cards),
+          "amino500 mesh: %d forward launches, one a bank (%d) a card (%d)"
+          % (launches["forward"], len(fwd), len(cards)))
+    for f in ("aligned.fasta", "aligned.masked.fasta"):
+        check(open(os.path.join(outdir, f), "rb").read() == open(
+            os.path.join(tmp, "amino500", f), "rb").read(),
+            "amino500 mesh: %s byte-identical to phase 3's" % f)
+    say("  amino500 wall: mesh %.2f s, phase 3 %.2f s"
+        % (WALL["amino500 mesh"], WALL["amino500"]))
+    r["amino500_forward_lines"] = fwd
+    result["mesh"] = r
     return launches
 
 
@@ -2507,6 +2612,8 @@ def main():
     say("card:", smi)
     say("card host: os.cpu_count() %d" % os.cpu_count())
     dev = torch.device("cuda")
+    # every phase but 4m scores on one card, whatever the host holds
+    os.environ["WITCH_TPU_NO_MESH"] = "1"
     from witch_tpu_torch import _build
     t0 = time.time()
     _build.lib()
@@ -2549,6 +2656,8 @@ def main():
               100)
         timed(phase_oa_path, rec, dev, result, "4e: oa kernel on dna1k's "
               "alignment pairs", "4e_dna1k")
+        paths["mesh"] = timed(phase_mesh, tmp, list(rec.fwd),
+                              list(rec.fwd_bits), result)
         paths["full_search_dna"] = timed(phase_full_search_dna, tmp, rec,
                                          dev, result)
         paths["dnawide"] = timed(phase_dnawide, tmp, rec, dev, result)
@@ -2619,6 +2728,10 @@ def main():
                             for mp, v in result.get(name + t, {}).get(
                                 "layouts", {}).items()}
             extras += ("bound_by", "pairs")
+        if name == "forward":
+            # the data mesh (4m): its cards, each card's kernel ms on
+            # dna1k's banks, the mesh's and one card's wall a call
+            k["mesh"] = result["mesh"]
         if name == "pairhmm":
             # the first version's ms on the same calls, the layout (layout,
             # CH, G) at each width, and each instance's registers, spills

@@ -25,7 +25,8 @@ PORT_MODULES = ("witch_tpu_torch", "witch_tpu_torch.pipeline",
                 "witch_tpu_torch.__main__", "witch_tpu_torch.server",
                 "witch_tpu_torch.benchlib", "witch_tpu_torch.ops.pairhmm",
                 "witch_tpu_torch.backbone_consistency",
-                "witch_tpu_torch.parallel.dist")
+                "witch_tpu_torch.parallel.dist",
+                "witch_tpu_torch.parallel.mesh")
 
 
 def _read_fasta_dict(fh):

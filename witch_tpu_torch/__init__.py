@@ -16,10 +16,12 @@ __all__ = ["resolve_device", "witch_runner"]
 
 def witch_runner(argv=None):
     """CLI entry: the reference's witch.py flags (cli.py). Runs on CUDA
-    and raises without it. When a live server (server.py) on a CUDA
-    device already watches server.default_jobs_dir(), the run is
-    submitted to it instead; WITCH_TPU_NO_DAEMON=1 keeps it in this
-    process. The CLI never starts a server."""
+    and raises without it; scores over every visible card unless
+    WITCH_TPU_NO_MESH is set (parallel/mesh.py). When a live server
+    (server.py) on a CUDA device already watches
+    server.default_jobs_dir(), the run is submitted to it instead;
+    WITCH_TPU_NO_DAEMON=1 keeps it in this process. The CLI never starts
+    a server."""
     import os
     import sys
     import time
@@ -50,7 +52,7 @@ def witch_runner(argv=None):
     Configs.log("WITCH-TPU (torch, %s) is running with: %s"
                 % (device, " ".join(cmdline_args)))
     s1 = time.time()
-    out = main_alignment_process(device)
+    out = main_alignment_process()        # no card index: the mesh may form
     s2 = time.time()
     Configs.log("WITCH-TPU (torch) finished in {} seconds...".format(s2 - s1))
     print("\nAll done! WITCH-TPU (torch) finished in {:.1f} seconds..."

@@ -150,18 +150,40 @@ def lib():
         return _lib
 
 
-def check(rc: int, name: str, count: bool = True) -> None:
-    """Raise if a C entry reported a CUDA error; count the launch (unless
-    the entry launched nothing)."""
+def check(rc: int, name: str, count: bool = True, device=None) -> None:
+    """Raise if a C entry reported a CUDA error, naming the card it ran on
+    (`device`, else the current card); count the launch (unless the entry
+    launched nothing)."""
     if rc != 0:
         import torch
+        if torch.cuda.is_available():
+            idx = None if device is None else torch.device(device).index
+            if idx is None:
+                idx = torch.cuda.current_device()
+            where = "cuda:%d, %s" % (idx, torch.cuda.get_device_name(idx))
+        else:
+            where = "no device"
         raise RuntimeError("CUDA kernel %s failed to launch: error %d (%s)"
-                           % (name, rc, torch.cuda.get_device_name(0)
-                              if torch.cuda.is_available() else "no device"))
+                           % (name, rc, where))
     if count:
         LAUNCHES[name] += 1
 
 
 def stream_ptr(device) -> int:
+    """The current stream of `device`'s card (torch.cuda.current_stream:
+    the stream PyTorch's own work on that card takes from this thread).
+    The C entries also set kernel attributes on the current card, so a
+    launch through this stream runs with `device` current (on_card)."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_card(device):
+    """A context in which `device`'s card is the current CUDA device; no
+    context for a CPU device."""
+    import contextlib
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -61,6 +61,10 @@ class Configs:
     graphtracemethod: str = "minclusters"
     graphtraceoptimize: str = "false"
 
+    # the cards the latest pipeline run scores on (pipeline.py sets it;
+    # a server's .done records it)
+    scoring_cards: Optional[List[str]] = None
+
     # log paths
     log_path: Optional[str] = None
     error_path: Optional[str] = None

@@ -20,22 +20,33 @@ import torch
 
 TRANS_ROWS = ("t_mm", "t_mi", "t_md", "t_im", "t_ii", "t_dm", "t_dd", "bm")
 LANE = 32          # state-axis padding; padded states are inert (all zero)
-_CACHE_MAX = 8
+_CACHE_MIN = 8     # banks kept resident at the least (cache_banks raises it)
+
+
+def canonical_device(device) -> torch.device:
+    """`device` as a torch.device with its card index: "cuda" names the
+    current card, so "cuda" and that card's "cuda:i" are one device (one
+    bank cache entry, one card of a mesh)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device the pipeline runs on: CUDA, or an error.
+    """The device the pipeline runs on: CUDA (the current card, with its
+    index), or an error.
 
     A caller that wants the plain CPU versions (the tests) passes
     device="cpu" explicitly; nothing falls back to the CPU on its own."""
     if device is not None:
-        return torch.device(device)
+        return canonical_device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "witch_tpu_torch needs a CUDA device (torch.cuda.is_available() "
             "is False); pass device='cpu' explicitly to run the plain "
             "PyTorch versions")
-    return torch.device("cuda")
+    return canonical_device("cuda")
 
 
 @dataclasses.dataclass
@@ -66,6 +77,16 @@ class BankTensors:
 
 
 _CACHE: dict = {}
+_cache_max = _CACHE_MIN
+
+
+def cache_banks(n_banks: int, n_cards: int) -> None:
+    """Size the bank cache for a job of n_banks banks on n_cards cards:
+    it keeps at least twice that many (the job's banks on every card, and
+    the previous job's beside them, so a resident server alternating two
+    jobs re-uploads neither). The bound never shrinks."""
+    global _cache_max
+    _cache_max = max(_cache_max, 2 * n_banks * n_cards)
 
 
 def _bank_key(bank, device) -> tuple:
@@ -73,13 +94,13 @@ def _bank_key(bank, device) -> tuple:
     h.update(np.ascontiguousarray(bank.em_odds).tobytes())
     for a in TRANS_ROWS + ("M",):
         h.update(np.ascontiguousarray(getattr(bank, a)).tobytes())
-    return h.hexdigest(), str(device)
+    return h.hexdigest(), str(canonical_device(device))
 
 
 def bank_to_torch(bank, device) -> BankTensors:
-    """ProfileBank -> BankTensors on `device`, cached by content hash
-    (at most 8 banks are kept resident)."""
-    device = torch.device(device)
+    """ProfileBank -> BankTensors on `device`, cached by content hash and
+    card (at least 8 banks are kept resident; cache_banks raises that)."""
+    device = canonical_device(device)
     key = _bank_key(bank, device)
     hit = _CACHE.get(key)
     if hit is not None:
@@ -97,7 +118,7 @@ def bank_to_torch(bank, device) -> BankTensors:
         trans=torch.from_numpy(trans).to(device),
         M=np.asarray(bank.M, np.int32).copy(),
         pad_code=int(gaps[0]) if len(gaps) else 0)
-    while len(_CACHE) >= _CACHE_MAX:
+    while len(_CACHE) >= _cache_max:
         _CACHE.pop(next(iter(_CACHE)))
     _CACHE[key] = hit
     return hit

@@ -368,7 +368,7 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor,
                 codes.data_ptr(), qlens.data_ptr(), slots[g0 * wp:].data_ptr(),
                 *ptrs, fspec.data_ptr(), H, min(per, n_groups - g0), bt.K,
                 Lc, W, C if layout == 1 else G, npl, Mpad, stream)
-            _build.check(rc, "flank")
+            _build.check(rc, "flank", device=dev)
     else:
         chunk = max(1, min(Q, SCRATCH_BYTES // (H * W * SPEC * 4)))
         fspec = torch.empty(chunk * H * W * SPEC, dtype=torch.float32,
@@ -381,7 +381,7 @@ def flank_rows(bt: BankTensors, codes: torch.Tensor, qlens: torch.Tensor,
                 outs[0][q0:].data_ptr(), outs[1][q0:].data_ptr(),
                 outs[2][q0:].data_ptr(), fspec.data_ptr(), H,
                 min(chunk, Q - q0), bt.Mp, bt.K, Lc, W, stream)
-            _build.check(rc, "flank")
+            _build.check(rc, "flank", device=dev)
     ev[1].record()
     ev[1].synchronize()
     _build.KERNEL_MS["flank"] += ev[0].elapsed_time(ev[1])

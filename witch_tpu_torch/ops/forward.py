@@ -17,7 +17,10 @@ runs on the same sorted order and is scattered back the same way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -142,10 +145,11 @@ def forward_nats_ref(bt: BankTensors, codes: torch.Tensor,
 
 
 def forward_nats(bt: BankTensors, codes: torch.Tensor,
-                 qlens: torch.Tensor) -> torch.Tensor:
+                 qlens: torch.Tensor, events=None) -> torch.Tensor:
     """Forward nats [Q, H]: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; both take the queries in length order and
-    return the scores in the caller's order."""
+    return the scores in the caller's order. `events`: two CUDA events,
+    recorded just before and just after the kernel's launch."""
     dev = bt.device
     if codes.device != dev or qlens.device != dev:
         raise ValueError("bank, codes and qlens must share a device")
@@ -167,11 +171,17 @@ def forward_nats(bt: BankTensors, codes: torch.Tensor,
     layout, G, npl, Mpad = fwd_layout(bt.Mp)
     em_t, tr_t = slot_tables(bt, G, npl)
     lib = _build.lib()
-    rc = lib.witch_forward_nats(
-        em_t.data_ptr(), tr_t.data_ptr(), codes.data_ptr(),
-        qlens.data_ptr(), order.data_ptr(), out.data_ptr(), bt.H, Q, bt.K,
-        codes.shape[1], layout, G, npl, Mpad, _build.stream_ptr(dev))
-    _build.check(rc, "forward")
+    with _build.on_card(dev):
+        if events is not None:
+            events[0].record()
+        rc = lib.witch_forward_nats(
+            em_t.data_ptr(), tr_t.data_ptr(), codes.data_ptr(),
+            qlens.data_ptr(), order.data_ptr(), out.data_ptr(), bt.H, Q,
+            bt.K, codes.shape[1], layout, G, npl, Mpad,
+            _build.stream_ptr(dev))
+        if events is not None:
+            events[1].record()
+    _build.check(rc, "forward", device=dev)
     return out
 
 
@@ -181,13 +191,57 @@ def null1_bits(qlens: np.ndarray) -> np.ndarray:
     return (L * np.log(p1) + np.log(1.0 - p1)) / LN2
 
 
+@dataclasses.dataclass
+class PendingForward:
+    """A started forward_nats call (forward_launch): its nats [Q, H] on
+    the bank's device, the query lengths, and the CUDA events around the
+    kernel's launch (None on the CPU, where ms is the plain version's
+    host time)."""
+    nats: torch.Tensor
+    qlens: np.ndarray
+    events: Optional[tuple] = None
+    ms: float = 0.0
+
+    def kernel_ms(self) -> float:
+        """The kernel's CUDA-event ms once forward_collect has returned
+        (the plain version's host ms on the CPU)."""
+        if self.events is None:
+            return self.ms
+        return self.events[0].elapsed_time(self.events[1])
+
+
+def forward_launch(bt: BankTensors, codes: np.ndarray,
+                   qlens: np.ndarray) -> PendingForward:
+    """The launch half of forward_bits: the queries copied to the bank's
+    device and the kernel started there, with that card current; returns
+    without waiting for the kernel (the plain version, on the CPU, runs
+    to its end)."""
+    dev = bt.device
+    qlens = np.asarray(qlens)
+    with _build.on_card(dev):
+        c = torch.as_tensor(np.asarray(codes), dtype=torch.int32,
+                            device=dev)
+        l = torch.as_tensor(qlens, dtype=torch.int32, device=dev)
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            nats = forward_nats(bt, c, l)
+            return PendingForward(nats, qlens,
+                                  ms=(time.perf_counter() - t0) * 1e3)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        nats = forward_nats(bt, c, l, events=ev)
+    return PendingForward(nats, qlens, ev if nats.numel() else None)
+
+
+def forward_collect(p: PendingForward) -> np.ndarray:
+    """The collect half: waits for the kernel and returns the bits (f64,
+    host)."""
+    nats = p.nats.double().cpu().numpy()
+    return nats / LN2 - null1_bits(p.qlens)[:, None]
+
+
 def forward_bits(bt: BankTensors, codes: np.ndarray,
                  qlens: np.ndarray) -> np.ndarray:
     """Null1-corrected pre-score bits [Q, H] (f64, host): the contract
     of witch_tpu/ops/pallas_forward.py:pallas_forward_bits."""
-    c = torch.as_tensor(np.asarray(codes), dtype=torch.int32,
-                        device=bt.device)
-    l = torch.as_tensor(np.asarray(qlens), dtype=torch.int32,
-                        device=bt.device)
-    nats = forward_nats(bt, c, l).double().cpu().numpy()
-    return nats / LN2 - null1_bits(qlens)[:, None]
+    return forward_collect(forward_launch(bt, codes, qlens))

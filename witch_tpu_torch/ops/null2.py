@@ -287,7 +287,7 @@ def null2_nats(bt: BankTensors, rows, flat, off, lds, pmove,
             pmove.data_ptr(), cta_env[a * wp:].data_ptr(), roff.data_ptr(),
             rows_s.data_ptr(), fled_s.data_ptr(), scal.data_ptr(),
             n2dot.data_ptr(), b - a, bt.K, layout, G, npl, Mpad, stream)
-        _build.check(rc, "null2")
+        _build.check(rc, "null2", device=dev)
     ev[1].record()
     ev[1].synchronize()
     _build.KERNEL_MS["null2"] += ev[0].elapsed_time(ev[1])

@@ -435,7 +435,7 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
                 rowk.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
                 stat.data_ptr(), b - a, bt.K, C if layout == 1 else G, npl,
                 bt.Mp, Mpad, stream)
-            _build.check(rc, "oa")
+            _build.check(rc, "oa", device=dev)
         ev[1].record()
     else:
         Ldmax = max(int(Ldmax), int(lens.max().item()))
@@ -465,7 +465,7 @@ def oa_nats(bt: BankTensors, rows, ms, flat, off, lens, pmove,
                 rowk.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
                 stat[c0:].data_ptr(), work.data_ptr() if in_dev else None,
                 m, Mp, bt.K, Ldmax, stream)
-            _build.check(rc, "oa")
+            _build.check(rc, "oa", device=dev)
         ev[1].record()
     ev[1].synchronize()
     _build.KERNEL_MS["oa"] += ev[0].elapsed_time(ev[1])

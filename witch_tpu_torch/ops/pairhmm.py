@@ -251,7 +251,7 @@ def pairhmm_forward_logodds(codesA, lensA, codesB, lensB, em,
             em.data_ptr(), out.data_ptr(),
             rows.data_ptr() if rows is not None else None, int(codes_smem),
             P, LA, LB, C, *t, _build.stream_ptr(dev))
-    _build.check(rc, "pairhmm")
+    _build.check(rc, "pairhmm", device=dev)
     ev[1].record()
     ev[1].synchronize()
     _build.KERNEL_MS["pairhmm"] += ev[0].elapsed_time(ev[1])

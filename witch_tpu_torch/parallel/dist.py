@@ -23,8 +23,9 @@ Two ways to gather:
     unless --keeptemp).
 
 The device-mesh half of the reference's module (data_mesh, make_mesh,
-sharded_score_bank and its steps, WITCH_TPU_NO_MESH) splits one process's
-scoring over several devices; the port has one scorer per process.
+sharded_score_bank, WITCH_TPU_NO_MESH) is parallel/mesh.py: it splits one
+process's scoring over every visible card. A shard forms no mesh: each
+rank of tools/run_distributed.py keeps one card.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ Stages:
      (scenario C, tree_estimate.py) or both made from unaligned input
      (scenario A, backbone.py) -> eHMM ensemble (host, ensemble.py)
      or a reused decomposition directory
-  2. all-vs-all Forward pre-scores on the device (ops/forward.py)
+  2. all-vs-all Forward pre-scores on the device (ops/forward.py), or
+     over every visible card (the data mesh, parallel/mesh.py)
   3. candidate selection, then the reporting gate: envelope null2 on the
      device (hmm/gate_device.py), regions, trace ensembles and the exact
      f64 Forward on the native engine; or, with --full-search-results,
@@ -38,7 +39,7 @@ import numpy as np
 from .config import Configs
 from .core.alignment import PackedAlignment
 from .core.alphabet import ALPHABETS, infer_datatype
-from .device import bank_to_torch, resolve_device
+from .device import bank_to_torch, cache_banks, resolve_device
 from .ensemble import (Ensemble, build_ensemble, read_ensemble_dir,
                        read_search_results, write_decomposition,
                        write_search_results)
@@ -49,6 +50,7 @@ from .merger import merge_rows_bytes
 from .ops.forward import forward_bits
 from .parallel.dist import (gather_rows, process_shard, replaced,
                             shard_indices)
+from .parallel.mesh import scoring_mesh, sharded_forward_bits
 from .weighting import calculate_weights, read_weights, write_weights
 
 OMEGA = 1.0 / 256.0           # null2 prior weight (seqbias floor)
@@ -111,9 +113,10 @@ def _candidate_walk(reported, valid, pre, evaluated, gate_ok,
 
 
 def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
-                   q_owned=None):
+                   q_owned=None, mesh=None):
     """Forward-score every query against every ensemble HMM on the
-    device, then gate and overlay the candidates.
+    device, or over the cards of `mesh` (parallel/mesh.py: bit-identical
+    scores), then gate and overlay the candidates on the device.
 
     Returns (scores [Q, H] rounded to 0.1 bit, valid [Q, H], indices,
     banks): valid=False where the reporting gate drops a candidate.
@@ -142,7 +145,12 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
 
     t0 = time.time()
     banks = build_banks(cores, indices=indices, uniform=True, n_buckets=2)
+    cache_banks(len(banks), len(mesh) if mesh else 1)
     banks_t = [bank_to_torch(b, device) for b in banks]
+    if mesh:
+        # each bank once on each card (the primary card's is banks_t's)
+        Configs.log("Scoring on %d-device data mesh" % len(mesh))
+        mesh_t = [[bank_to_torch(b, d) for d in mesh] for b in banks]
     Configs.runtime("  scoring: bank build/quantize/upload (s): %f"
                     % (time.time() - t0))
     ev = getattr(Configs, "_art_gate_event", None)
@@ -162,13 +170,19 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
     owned = np.arange(Q) if q_owned is None else np.asarray(q_owned,
                                                             np.int64)
     pre = np.zeros((Q, H), np.float64)
-    for b, bt in zip(banks, banks_t):
+    for bi, (b, bt) in enumerate(zip(banks, banks_t)):
         t1 = time.time()
-        bits = forward_bits(bt, codes, lens)
+        where = ""
+        if mesh:
+            bits, ms = sharded_forward_bits(mesh_t[bi], codes, lens)
+            where = " on %d cards (kernel ms %s)" % (len(mesh), ", ".join(
+                "%s %.2f" % (d, m) for d, m in zip(mesh, ms)))
+        else:
+            bits = forward_bits(bt, codes, lens)
         for j, idx in enumerate(b.hmm_indices):
             pre[:, col_of[int(idx)]] = bits[:, j]
-        Configs.runtime("  scoring: device Forward Mp=%d H=%d (s): %f"
-                        % (bt.Mp, bt.H, time.time() - t1))
+        Configs.runtime("  scoring: device Forward Mp=%d H=%d%s (s): %f"
+                        % (bt.Mp, bt.H, where, time.time() - t1))
 
     valid = np.ones((Q, H), bool)
     reported = pre - BIAS_FLOOR_BITS
@@ -522,7 +536,10 @@ def read_checkpoint(path: str) -> Dict[str, str]:
 def main_alignment_process(device=None):
     """The WITCH pipeline end to end (scenarios A, C and D; witch-ng or
     old-witch). `device` defaults to CUDA (raises without it); pass
-    device="cpu" to run the kernels' plain versions. A speculative OA
+    device="cpu" to run the kernels' plain versions. Given no card index
+    (None or "cuda"), an unsharded run scores over every visible card
+    (parallel/mesh.py:scoring_mesh; WITCH_TPU_NO_MESH=1 keeps it on one)
+    and runs the rest on the current card. A speculative OA
     run that the align stage did not join (the run stopped earlier) is
     waited out before this returns or raises."""
     from .aligner import wait_speculative
@@ -533,9 +550,12 @@ def main_alignment_process(device=None):
 
 
 def _alignment_process(device):
-    device = resolve_device(device)
-    t_start = time.time()
     shard, n_shards = process_shard()
+    mesh = scoring_mesh(device, n_shards)
+    device = resolve_device(device)
+    # the cards this run scores on (a server's .done records them)
+    Configs.scoring_cards = [str(d) for d in (mesh or [device])]
+    t_start = time.time()
     molecule = Configs.molecule
     if molecule is None:
         src = (Configs.backbone_path or Configs.query_path
@@ -668,7 +688,7 @@ def _alignment_process(device):
                                 % (time.time() - s))
         if scores is None:
             scores, valid, indices, banks = compute_scores(
-                ens, qcodes, device, q_owned=q_owned)
+                ens, qcodes, device, q_owned=q_owned, mesh=mesh)
             Configs.runtime("Time for all-vs-all Forward scoring (s): %f"
                             % (time.time() - s))
             if art_thread is not None:

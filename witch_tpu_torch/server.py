@@ -1,9 +1,9 @@
 """Resident serving mode: one long-lived process runs many alignment
-jobs on one device, keeping what a fresh process would set up again
-from one job to the next: the CUDA context, the loaded kernel library
-(_build.lib), the native engine's extensions and the device bank cache
-(device.py:bank_to_torch). Counterpart of witch_tpu/server.py, with the
-same file protocol:
+jobs on its device (scoring over every visible card), keeping what a
+fresh process would set up again from one job to the next: the CUDA
+context, the loaded kernel library (_build.lib), the native engine's
+extensions and the device bank cache (device.py:bank_to_torch).
+Counterpart of witch_tpu/server.py, with the same file protocol:
 
     jobs/<name>.job      JSON: {"argv": ["-b", ..., "-d", ...]}, or
                          {"kind": "bench", "assets": path, "reps": n}
@@ -11,9 +11,17 @@ same file protocol:
     jobs/<name>.done     JSON: {"ok": bool, "output": path|dict|None,
                                 "error": str|None, "seconds": float,
                                 "launches": {kernel: count},
-                                "device": str}
-    jobs/server.alive    JSON: {"pid": int, "device": str}; its mtime is
-                         a heartbeat
+                                "device": str, "cards": [str]|None}
+    jobs/server.alive    JSON: {"pid": int, "device": str,
+                                "cards": [str]}; its mtime is a heartbeat
+
+On a host with several cards a server started without a card index
+scores each job over every visible card (the data mesh,
+parallel/mesh.py), unless WITCH_TPU_NO_MESH is set in the server's or
+the job's environment; "cards" lists the cards a job scored on (null
+when it stopped before scoring was set up), and in server.alive the
+cards its jobs score on by default. "device" is the primary card, where
+everything after scoring runs.
 
 Usage:
     python -m witch_tpu_torch serve -d JOBS_DIR [--max-idle S] [--device D]
@@ -91,38 +99,47 @@ def _claim(jobs_dir):
     return None
 
 
-def _write_alive(alive, device):
+def _write_alive(alive, device, cards=None):
     with open(alive, "w") as f:
-        json.dump({"pid": os.getpid(), "device": str(device)}, f)
+        json.dump({"pid": os.getpid(), "device": str(device),
+                   "cards": cards or [str(device)]}, f)
 
 
-def _heartbeat(alive, device, stop):
+def _heartbeat(alive, device, cards, stop):
     while not stop.wait(5.0):
         try:
             os.utime(alive)
         except OSError:
-            _write_alive(alive, device)
+            _write_alive(alive, device, cards)
 
 
 def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
           device=None) -> None:
     """Run the jobs that appear in jobs_dir, one at a time, until no job
     came for max_idle_s seconds (0: forever). The device is resolved once
-    (CUDA unless the caller passes another)."""
+    (CUDA unless the caller passes another); each job gets the caller's
+    own `device`, so that without a card index its scoring forms the
+    data mesh."""
     from . import _build
+    from .config import Configs
     from .device import resolve_device
+    from .parallel.dist import process_shard
+    from .parallel.mesh import scoring_mesh
+    requested = device
     device = resolve_device(device)
+    cards = [str(d) for d in (scoring_mesh(requested, process_shard()[1])
+                              or [device])]
     os.environ["WITCH_TPU_IN_SERVER"] = "1"
     os.makedirs(jobs_dir, exist_ok=True)
     alive = os.path.join(jobs_dir, "server.alive")
-    _write_alive(alive, device)
+    _write_alive(alive, device, cards)
     stop = threading.Event()
     # the heartbeat beats during long jobs too (submitters take a stale
     # mtime for a dead server)
-    threading.Thread(target=_heartbeat, args=(alive, device, stop),
+    threading.Thread(target=_heartbeat, args=(alive, device, cards, stop),
                      daemon=True).start()
-    print("witch_tpu_torch server: watching %s on %s" % (jobs_dir, device),
-          flush=True)
+    print("witch_tpu_torch server: watching %s on %s (scoring on %s)"
+          % (jobs_dir, device, ", ".join(cards)), flush=True)
     last_work = time.time()
     try:
         while True:
@@ -136,8 +153,9 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
                 continue
             t0 = time.time()
             result = {"ok": False, "output": None, "error": None,
-                      "device": str(device)}
+                      "device": str(device), "cards": None}
             _build.reset_launches()
+            Configs.scoring_cards = None
             try:
                 with open(os.path.join(jobs_dir, name + ".job")) as f:
                     spec = json.load(f)
@@ -145,10 +163,11 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
                     print("witch_tpu_torch server: bench job %s" % name,
                           flush=True)
                     result["output"] = _run_bench_job(spec, device)
+                    Configs.scoring_cards = [str(device)]
                 else:
                     print("witch_tpu_torch server: job %s %s"
                           % (name, spec["argv"]), flush=True)
-                    result["output"] = _run_job(spec["argv"], device,
+                    result["output"] = _run_job(spec["argv"], requested,
                                                 spec.get("cwd"),
                                                 spec.get("env"))
                 result["ok"] = True
@@ -158,6 +177,7 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
                 result["error"] = traceback.format_exc()
             result["seconds"] = time.time() - t0
             result["launches"] = dict(_build.LAUNCHES)
+            result["cards"] = Configs.scoring_cards
             tmp = os.path.join(jobs_dir, name + ".done.tmp")
             with open(tmp, "w") as f:
                 json.dump(result, f)

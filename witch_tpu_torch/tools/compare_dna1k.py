@@ -1,6 +1,6 @@
 """Run the seeded dna1k scenario D through the witch_tpu_torch CLI of two
-checkouts of the repository on one CUDA card, and compare their outputs
-byte for byte.
+(or more) checkouts of the repository on one host, and compare their
+outputs byte for byte.
 
     python3 witch_tpu_torch/tools/compare_dna1k.py --tree A --tree B [--out DIR]
         [--full-search N] [--env I:KEY=VALUE ...] [--queries Q]
@@ -13,8 +13,11 @@ With --full-search N the runs take its first N queries with
 definition of the pairs it keeps). --env I:KEY=VALUE sets KEY in the
 environment of the I-th --tree's runs (from 0): `--tree . --tree . --env
 1:WITCH_TPU_SPEC_OA=0` compares one checkout with the speculative OA
-start on and off. The trees run in turns A B B A, each
-in its own process, so the timings come from one call on one card. Per
+start on and off; on a host of four cards `--tree . --tree . --tree .
+--env 0:WITCH_TPU_NO_MESH=1 --env 1:CUDA_VISIBLE_DEVICES=0,1` scores on
+1, 2 and 4 cards (the data mesh, parallel/mesh.py). The trees run in
+turns A B B A (A B C C B A for three), each in its own process, so the
+timings come from one call. Per
 run it prints one JSON line: the tree, the wall time, and the
 runtime_breakdown.txt lines of the device Forward scoring, the device
 gate (or prefilter, with the flank kernel's ms and launches), the native
@@ -158,7 +161,9 @@ def main():
         i, kv = e.split(":", 1)
         k, v = kv.split("=", 1)
         envs[int(i)][k] = v
-    turns = [0] if len(trees) == 1 else [0, 1, 1, 0]
+    turns = list(range(len(trees)))
+    if len(trees) > 1:
+        turns += turns[::-1]
     data = os.path.join(a.out, "data")
     subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
                                                  "make_scale_dataset.py"),

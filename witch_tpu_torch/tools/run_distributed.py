@@ -7,8 +7,9 @@ torch.distributed gloo group on this host.
 The parent picks a free local port and starts N children at once. Child i
 joins the group (gloo, tcp://127.0.0.1:PORT, rank i of N), takes the card
 i mod the visible cards with --device cuda (it sees only that card, so
-every thread of it launches there) and 1/N of the host's cores (-t, and
-as many PyTorch CPU threads, unless the flags give -t), then runs
+every thread of it launches there; named by its index, so that a rank
+forms no data mesh: parallel/mesh.py) and 1/N of the host's cores (-t,
+and as many PyTorch CPU threads, unless the flags give -t), then runs
 pipeline.main_alignment_process in process on the given flags. Each child
 gates and aligns its own block of queries; rank 0 gathers every rank's
 rows and merges (parallel/dist.py). All ranks write into the one outdir.
@@ -51,6 +52,8 @@ def child(rank: int, n: int, port: int, device: str, argv) -> int:
             raise RuntimeError("rank %d: --device cuda, and CUDA is not "
                                "available" % rank)
         torch.cuda.set_device(rank % torch.cuda.device_count())
+        # the rank's one card, by index: a rank scores on it alone
+        device = "cuda:%d" % torch.cuda.current_device()
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             rank=rank, world_size=n)
     try:
@@ -93,7 +96,7 @@ def child(rank: int, n: int, port: int, device: str, argv) -> int:
             "rank": rank, "wall_s": wall, "merged": out is not None,
             "card": (os.environ.get("CUDA_VISIBLE_DEVICES", "")
                      + ":%d" % torch.cuda.current_device()
-                     if device == "cuda" else None),
+                     if device != "cpu" else None),
             "gather_s": t_gather[0] if t_gather else None,
             "launches": {k: v - before[k]
                          for k, v in _build.LAUNCHES.items()},
