@@ -94,9 +94,12 @@ def test_gate_matches_native_and_jax(seed):
 
 @needs_simd
 def test_gate_stats_name_each_window():
-    """The gate times its device thread itself (t_null2), apart from the
-    host multidomain pool (t_multi_host) and the join after it (t_wait);
-    on the CPU no kernel runs, so its ms and launches stay 0."""
+    """Each window of the gate is a span under the caller's: the device
+    thread's (gate.null2, on its own thread, with the null2 kernel's ms
+    and launches), apart from the host multidomain pool (gate.multidomain)
+    and the join after it (gate.wait); on the CPU no kernel runs, so its
+    ms and launches stay 0. The stats carry no timing of their own."""
+    from witch_tpu_torch import spans
     cores, queries = case(3)
     bank = build_banks(cores, uniform=True, n_buckets=1)[0]
     clist = [np.ascontiguousarray(c, np.int32) for c in queries]
@@ -107,13 +110,20 @@ def test_gate_stats_name_each_window():
     for j in by_j:
         _, mo, pb, pe = _domaindef.flank_targets_simd(*allargs[j], clist, 1)
         flank_rows[j] = (mo, pb, pe)
-    _, stats = evaluate_gate_device(
-        [bank_to_torch(bank, "cpu")], {j: (0, j) for j in by_j}, allargs,
-        queries, by_j, flank_rows, nthreads=2)
-    assert stats["entries"] >= 1 and stats["t_null2"] > 0.0
-    assert stats["t_multi_host"] >= 0.0 and stats["t_wait"] >= 0.0
-    assert stats["null2_kernel_ms"] == 0.0 and stats["null2_launches"] == 0
-    assert "t_device" not in stats and "t_multi" not in stats
+    with spans.span("scoring.gate") as gate:
+        _, stats = evaluate_gate_device(
+            [bank_to_torch(bank, "cpu")], {j: (0, j) for j in by_j},
+            allargs, queries, by_j, flank_rows, nthreads=2)
+    null2 = gate.child("gate.null2")
+    assert stats["entries"] >= 1 and null2.seconds > 0.0
+    assert null2.counters == {"envelopes": stats["entries"],
+                              "launches": 0, "kernel_ms": 0.0}
+    assert null2.tid != gate.tid
+    assert [c.name for c in gate.children if c.tid == gate.tid] == [
+        "gate.classify", "gate.multidomain", "gate.wait", "gate.assemble"]
+    assert gate.child_seconds("gate.multidomain") >= 0.0
+    assert not {k for k in stats if k.startswith("t_")}
+    assert "null2_kernel_ms" not in stats and "null2_launches" not in stats
 
 
 def test_null2_envelopes_match_jax_interpret():

@@ -100,16 +100,17 @@ def test_drifted_pairs_are_aligned_natively(sequential, queries, tmp_path,
 def test_thread_error_stops_the_run(queries, tmp_path, monkeypatch):
     """An exception in the speculative thread is raised at the join: the
     run fails and writes no alignment (no sequential fallback)."""
+    from witch_tpu_torch import spans
     from witch_tpu_torch.aligner import DeviceAligner
     orig = DeviceAligner.aligned_columns_batch
 
-    def fail_quiet(self, pairs, Ldmax, quiet=False):
-        if quiet:              # only the speculative thread runs quiet
+    def fail_spec(self, pairs, Ldmax):
+        if spans.current().name == "spec_oa":   # the speculative thread
             raise RuntimeError("speculative thread failed")
-        return orig(self, pairs, Ldmax, quiet)
+        return orig(self, pairs, Ldmax)
 
     monkeypatch.delenv("WITCH_TPU_SPEC_OA", raising=False)
-    monkeypatch.setattr(DeviceAligner, "aligned_columns_batch", fail_quiet)
+    monkeypatch.setattr(DeviceAligner, "aligned_columns_batch", fail_spec)
     with pytest.raises(RuntimeError, match="speculative thread failed"):
         _run(tmp_path / "out", queries)
     assert not (tmp_path / "out" / "aligned.fasta").exists()
@@ -122,14 +123,16 @@ def test_unjoined_thread_is_waited_out(queries, tmp_path, monkeypatch):
     import time
     import witch_tpu_torch.aligner as aligner
     import witch_tpu_torch.pipeline as pipeline
+    from witch_tpu_torch import spans
     orig = aligner.DeviceAligner.aligned_columns_batch
     ended = []
 
-    def slow_quiet(self, pairs, Ldmax, quiet=False):
-        if quiet:
+    def slow_spec(self, pairs, Ldmax):
+        spec = spans.current().name == "spec_oa"  # the speculative thread
+        if spec:
             time.sleep(1.0)
-        out = orig(self, pairs, Ldmax, quiet)
-        ended.append(quiet)
+        out = orig(self, pairs, Ldmax)
+        ended.append(spec)
         return out
 
     def fail(path):
@@ -137,7 +140,7 @@ def test_unjoined_thread_is_waited_out(queries, tmp_path, monkeypatch):
 
     monkeypatch.delenv("WITCH_TPU_SPEC_OA", raising=False)
     monkeypatch.setattr(aligner.DeviceAligner, "aligned_columns_batch",
-                        slow_quiet)
+                        slow_spec)
     monkeypatch.setattr(pipeline, "read_checkpoint", fail)
     with pytest.raises(OSError, match="checkpoint unreadable"):
         _run(tmp_path / "out", queries)

@@ -16,6 +16,12 @@ DeviceAligner.aligned_columns_batch on the pairs the pre-overlay scores
 select while the host runs the exact-f32 print overlay; align_all_queries
 joins it (SpeculativeOA.join), aligning the pairs whose selection drifted
 on the native engine.
+
+Spans (spans.py): align.oa (the aligner run by the align stage) or
+spec_oa (its speculative thread; a child of the scoring stage's span),
+each with oa.device (the kernel: its launches and ms are the outer
+span's counters) and oa.redo (the native guard re-alignments); align.join
+with align.join_wait and the selection-drift count; align.merge_dp.
 """
 
 from __future__ import annotations
@@ -28,13 +34,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import _build
 from .config import Configs
 from .device import bank_to_torch
 from .ensemble import Ensemble
 from .hmm.profile import Profile, configure
 from .ops.merge_dp import align_query_row
 from .ops.oa import bank_strictly_positive, oa_columns
+from .spans import current, span
 from .weighting import adaptive_top_hmms
 
 OA_GUARD = 2e-3
@@ -122,33 +128,32 @@ class DeviceAligner:
         """(cols, margins, oks) straight from the kernel."""
         return oa_columns(self.banks_t, self.bank_row, pairs, Ldmax=Ldmax)
 
-    def aligned_columns_batch(self, pairs, Ldmax: int, quiet=False):
-        """Columns per pair: the device kernel, then the native guard
-        re-alignment of below-margin / failed-trace pairs. The run's
-        numbers are kept in self.stats; `quiet` leaves the runtime line
-        to the caller."""
+    def aligned_columns_batch(self, pairs, Ldmax: int):
+        """Columns per pair: the device kernel (span oa.device), then the
+        native guard re-alignment of below-margin / failed-trace pairs
+        (span oa.redo, its pairs counted), inside the caller's span."""
         if not pairs:
             return []
-        t0 = time.time()
-        k_ms, k_n = _build.KERNEL_MS["oa"], _build.LAUNCHES["oa"]
-        cols, margins, oks = self.device_columns(pairs, Ldmax)
-        t1 = time.time()
+        with span("oa.device"):
+            cols, margins, oks = self.device_columns(pairs, Ldmax)
         redo = [p for p in range(len(pairs))
                 if not oks[p] or margins[p] < OA_GUARD]
-        if redo:
-            fixed = self.native_columns([pairs[p] for p in redo])
-            for p, v in zip(redo, fixed):
-                cols[p] = v
-        self.stats = dict(
-            pairs=len(pairs), t_device=t1 - t0, redo=len(redo),
-            kernel_ms=_build.KERNEL_MS["oa"] - k_ms,
-            launches=_build.LAUNCHES["oa"] - k_n, t=time.time() - t0)
-        if not quiet:
-            Configs.runtime(
-                "  align: %(pairs)d pairs device posterior+OA %(t_device).2fs "
-                "(kernel %(kernel_ms).2f ms, %(launches)d launches; %(redo)d "
-                "below-guard native re-aligns) (s): %(t)f" % self.stats)
+        with span("oa.redo", pairs=len(redo)):
+            if redo:
+                fixed = self.native_columns([pairs[p] for p in redo])
+                for p, v in zip(redo, fixed):
+                    cols[p] = v
         return cols
+
+
+def _oa_text(sp) -> str:
+    """An aligner run's part of its stage line, from its span (align.oa or
+    spec_oa) and that span's parts."""
+    return ("%d pairs device posterior+OA %.2fs (kernel %.2f ms, %d "
+            "launches; %d below-guard native re-aligns)"
+            % (sp.counters["pairs"], sp.child_seconds("oa.device"),
+               sp.counters["kernel_ms"], sp.counters["launches"],
+               sp.child("oa.redo").counters["pairs"]))
 
 
 # speculative runs started and not yet joined
@@ -168,6 +173,9 @@ class SpeculativeOA:
         self.aligner = aligner
         self.cache: Dict[tuple, np.ndarray] = {}
         self.error: Optional[BaseException] = None
+        # the thread's span, spec_oa, a child of the span that starts it
+        self.span = span("spec_oa", parent=current(), kernels="oa",
+                         pairs=len(pairs))
         self.thread = threading.Thread(
             target=self._run, args=(pairs, Ldmax, device), daemon=True)
         self.thread.start()
@@ -175,10 +183,9 @@ class SpeculativeOA:
     def _run(self, pairs, Ldmax, device):
         try:
             import torch
-            with torch.cuda.device(device) if device.type == "cuda" \
-                    else contextlib.nullcontext():
-                cols = self.aligner.aligned_columns_batch(pairs, Ldmax,
-                                                          quiet=True)
+            with self.span, torch.cuda.device(device) \
+                    if device.type == "cuda" else contextlib.nullcontext():
+                cols = self.aligner.aligned_columns_batch(pairs, Ldmax)
             for (idx, c), v in zip(pairs, cols):
                 self.cache[_pair_key(idx, c)] = v
         except BaseException as e:   # noqa: BLE001 - re-raised by join
@@ -189,28 +196,26 @@ class SpeculativeOA:
         native engine's for pairs the speculative selection missed (the
         selection drifted with the overlay). Re-raises the thread's
         error."""
-        t0 = time.time()
-        self.thread.join()
-        if self in _PENDING:
-            _PENDING.remove(self)
-        if self.error is not None:
-            raise self.error
-        t_wait = time.time() - t0
-        out = [self.cache.get(_pair_key(idx, c)) for idx, c in pairs]
-        missing = [p for p, v in enumerate(out) if v is None]
-        if missing:
-            fixed = self.aligner.native_columns([pairs[p] for p in missing])
-            for p, v in zip(missing, fixed):
-                out[p] = v
-        st = self.aligner.stats
+        with span("align.join", pairs=len(pairs)) as sp:
+            with span("align.join_wait"):
+                self.thread.join()
+            if self in _PENDING:
+                _PENDING.remove(self)
+            if self.error is not None:
+                raise self.error
+            out = [self.cache.get(_pair_key(idx, c)) for idx, c in pairs]
+            missing = [p for p, v in enumerate(out) if v is None]
+            sp.counters["drift"] = len(missing)
+            if missing:
+                fixed = self.aligner.native_columns(
+                    [pairs[p] for p in missing])
+                for p, v in zip(missing, fixed):
+                    out[p] = v
         Configs.runtime(
             "  align: %d pairs speculative device OA join (%d selection-drift "
-            "host aligns) wait %.2fs; speculative thread %d pairs device "
-            "posterior+OA %.2fs (kernel %.2f ms, %d launches; %d below-guard "
-            "native re-aligns) %.2fs (s): %f"
-            % (len(pairs), len(missing), t_wait, st["pairs"], st["t_device"],
-               st["kernel_ms"], st["launches"], st["redo"], st["t"],
-               time.time() - t0))
+            "host aligns) wait %.2fs; speculative thread %s %.2fs (s): %f"
+            % (len(pairs), len(missing), sp.child_seconds("align.join_wait"),
+               _oa_text(self.span), self.span.seconds, sp.seconds))
         return out
 
 
@@ -284,12 +289,14 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
     if spec is not None:
         ens._spec_oa = None
         cols = spec.join(pair_list)
+    elif pair_list:
+        aligner = DeviceAligner(ens, device, banks)
+        with span("align.oa", kernels="oa", pairs=len(pair_list)) as sp:
+            cols = aligner.aligned_columns_batch(pair_list, Ldmax)
+        Configs.runtime("  align: %s (s): %f" % (_oa_text(sp), sp.seconds))
     else:
-        cols = DeviceAligner(ens, device, banks).aligned_columns_batch(
-            pair_list, Ldmax) if pair_list else []
+        cols = []
     cols_of = dict(zip(keys, cols))
-
-    t0 = time.time()
 
     def per_hmm(qname):
         return [(cols_of[(qname, idx)], ens.retained_columns[idx],
@@ -304,21 +311,22 @@ def align_all_queries(ens, qnames, qseqs, qcodes,
         if checkpoint_cb:
             checkpoint_cb(qname, row)
 
-    if mode == "old-witch":
-        for qname, row in _gcm_rows(todo, per_hmm, qseqs, name_to_i,
-                                    backbone_length):
-            keep(qname, row)
-    else:
-        def merge_one(qname):
-            return align_query_row(qseqs[name_to_i[qname]],
-                                   backbone_length, per_hmm(qname))
-
-        n_thr = max(1, min(8, int(getattr(Configs, "num_cpus", 4))))
-        with ThreadPoolExecutor(max_workers=n_thr) as ex:
-            for qname, row in zip(todo, ex.map(merge_one, todo)):
+    with span("align.merge_dp", queries=len(todo)) as sp:
+        if mode == "old-witch":
+            for qname, row in _gcm_rows(todo, per_hmm, qseqs, name_to_i,
+                                        backbone_length):
                 keep(qname, row)
+        else:
+            def merge_one(qname):
+                return align_query_row(qseqs[name_to_i[qname]],
+                                       backbone_length, per_hmm(qname))
+
+            n_thr = max(1, min(8, int(getattr(Configs, "num_cpus", 4))))
+            with ThreadPoolExecutor(max_workers=n_thr) as ex:
+                for qname, row in zip(todo, ex.map(merge_one, todo)):
+                    keep(qname, row)
     Configs.runtime("  align: merge DP for %d queries (s): %f"
-                    % (len(todo), time.time() - t0))
+                    % (len(todo), sp.seconds))
     return rows, ignored
 
 

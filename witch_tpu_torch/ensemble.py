@@ -23,6 +23,7 @@ from .core.alphabet import ALPHABETS
 from .core.tree import Tree
 from .hmm.build import CoreHMM, build_hmm, quantize_like_text
 from .io.hmmer_text import read_hmm, write_hmm
+from .spans import current, span
 
 
 @dataclasses.dataclass
@@ -50,12 +51,13 @@ def decompose_tree_file(tree_path: str, max_size: int,
     return tree.decompose(max_size, min_size, hierarchical=True)
 
 
-def _build_one(args):
+def _build_one(args, parent=None):
     i, codes_bytes, shape, molecule, name = args
-    codes = np.frombuffer(codes_bytes, dtype=np.uint8).reshape(shape)
-    alphabet = ALPHABETS[molecule]
-    core = build_hmm(codes, alphabet, molecule, name=name)
-    return i, quantize_like_text(core)
+    with span("ensemble.model", parent=parent, sequences=shape[0]):
+        codes = np.frombuffer(codes_bytes, dtype=np.uint8).reshape(shape)
+        alphabet = ALPHABETS[molecule]
+        core = build_hmm(codes, alphabet, molecule, name=name)
+        return i, quantize_like_text(core)
 
 
 def build_ensemble(backbone: PackedAlignment, tree_path: str,
@@ -63,25 +65,33 @@ def build_ensemble(backbone: PackedAlignment, tree_path: str,
                    upper_bound: Optional[int] = None,
                    molecule: str = "dna",
                    n_workers: int = 1) -> Ensemble:
-    subsets = decompose_tree_file(tree_path, alignment_size)
+    """The eHMM of `backbone` on the decomposition of its tree: spans
+    ensemble.decompose (the tree's subsets and their columns) and
+    ensemble.model (a model's build, in a pool worker where n_workers >
+    1), children of the caller's open span."""
     cores: Dict[int, CoreHMM] = {}
     retained: Dict[int, np.ndarray] = {}
     nongaps: Dict[int, np.ndarray] = {}
     jobs = []
-    for i, leaves in enumerate(subsets):
-        if upper_bound is not None and len(leaves) > upper_bound:
-            continue
-        rows, ret, ng = subset_counts(backbone, leaves)
-        retained[i] = ret
-        nongaps[i] = ng
-        sub_codes = np.ascontiguousarray(backbone.codes[rows][:, ret])
-        jobs.append((i, sub_codes.tobytes(), sub_codes.shape, molecule,
-                     "A_0_%d" % i))
+    with span("ensemble.decompose") as sp:
+        subsets = decompose_tree_file(tree_path, alignment_size)
+        for i, leaves in enumerate(subsets):
+            if upper_bound is not None and len(leaves) > upper_bound:
+                continue
+            rows, ret, ng = subset_counts(backbone, leaves)
+            retained[i] = ret
+            nongaps[i] = ng
+            sub_codes = np.ascontiguousarray(backbone.codes[rows][:, ret])
+            jobs.append((i, sub_codes.tobytes(), sub_codes.shape, molecule,
+                         "A_0_%d" % i))
+        sp.counters["models"] = len(jobs)
     if n_workers > 1 and len(jobs) > 4:
-        # threads, not processes: the numpy build releases the GIL and
-        # fork() after JAX initialization risks deadlocks
+        # threads, not processes: the numpy build releases the GIL in
+        # part, and fork() after JAX initialization risks deadlocks
+        parent = current()
         with ThreadPoolExecutor(n_workers) as pool:
-            for i, core in pool.map(_build_one, jobs):
+            for i, core in pool.map(_build_one, jobs,
+                                    [parent] * len(jobs)):
                 cores[i] = core
     else:
         for job in jobs:

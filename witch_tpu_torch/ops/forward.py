@@ -234,9 +234,11 @@ def forward_launch(bt: BankTensors, codes: np.ndarray,
 
 
 def forward_collect(p: PendingForward) -> np.ndarray:
-    """The collect half: waits for the kernel and returns the bits (f64,
-    host)."""
+    """The collect half: waits for the kernel, adds its CUDA-event ms to
+    _build.KERNEL_MS["forward"] and returns the bits (f64, host)."""
     nats = p.nats.double().cpu().numpy()
+    if p.events is not None:
+        _build.KERNEL_MS["forward"] += p.kernel_ms()
     return nats / LN2 - null1_bits(p.qlens)[:, None]
 
 

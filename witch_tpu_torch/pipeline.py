@@ -30,7 +30,6 @@ from __future__ import annotations
 import gzip
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -51,6 +50,7 @@ from .ops.forward import forward_bits
 from .parallel.dist import (gather_rows, process_shard, replaced,
                             shard_indices)
 from .parallel.mesh import scoring_mesh, sharded_forward_bits
+from .spans import span
 from .weighting import calculate_weights, read_weights, write_weights
 
 OMEGA = 1.0 / 256.0           # null2 prior weight (seqbias floor)
@@ -143,16 +143,17 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
                              "%d-state cap" % m_cap)
     cores = [ens.cores[i] for i in indices]
 
-    t0 = time.time()
-    banks = build_banks(cores, indices=indices, uniform=True, n_buckets=2)
-    cache_banks(len(banks), len(mesh) if mesh else 1)
-    banks_t = [bank_to_torch(b, device) for b in banks]
-    if mesh:
-        # each bank once on each card (the primary card's is banks_t's)
-        Configs.log("Scoring on %d-device data mesh" % len(mesh))
-        mesh_t = [[bank_to_torch(b, d) for d in mesh] for b in banks]
+    with span("scoring.bank", models=len(cores)) as sp:
+        banks = build_banks(cores, indices=indices, uniform=True,
+                            n_buckets=2)
+        cache_banks(len(banks), len(mesh) if mesh else 1)
+        banks_t = [bank_to_torch(b, device) for b in banks]
+        if mesh:
+            # each bank once on each card (the primary card's is banks_t's)
+            Configs.log("Scoring on %d-device data mesh" % len(mesh))
+            mesh_t = [[bank_to_torch(b, d) for d in mesh] for b in banks]
     Configs.runtime("  scoring: bank build/quantize/upload (s): %f"
-                    % (time.time() - t0))
+                    % sp.seconds)
     ev = getattr(Configs, "_art_gate_event", None)
     if ev is not None:
         ev.set()
@@ -171,18 +172,21 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
                                                             np.int64)
     pre = np.zeros((Q, H), np.float64)
     for bi, (b, bt) in enumerate(zip(banks, banks_t)):
-        t1 = time.time()
         where = ""
-        if mesh:
-            bits, ms = sharded_forward_bits(mesh_t[bi], codes, lens)
-            where = " on %d cards (kernel ms %s)" % (len(mesh), ", ".join(
-                "%s %.2f" % (d, m) for d, m in zip(mesh, ms)))
-        else:
-            bits = forward_bits(bt, codes, lens)
-        for j, idx in enumerate(b.hmm_indices):
-            pre[:, col_of[int(idx)]] = bits[:, j]
-        Configs.runtime("  scoring: device Forward Mp=%d H=%d%s (s): %f"
-                        % (bt.Mp, bt.H, where, time.time() - t1))
+        with span("scoring.forward", kernels="forward", H=bt.H, Q=Q) as sp:
+            if mesh:
+                bits, ms = sharded_forward_bits(mesh_t[bi], codes, lens)
+                where = " on %d cards (kernel ms %s)" % (
+                    len(mesh), ", ".join("%s %.2f" % (d, m)
+                                         for d, m in zip(mesh, ms)))
+            else:
+                bits = forward_bits(bt, codes, lens)
+            for j, idx in enumerate(b.hmm_indices):
+                pre[:, col_of[int(idx)]] = bits[:, j]
+        Configs.runtime("  scoring: device Forward Mp=%d H=%d (kernel %.2f "
+                        "ms)%s (s): %f" % (bt.Mp, bt.H,
+                                           sp.counters["kernel_ms"], where,
+                                           sp.seconds))
 
     valid = np.ones((Q, H), bool)
     reported = pre - BIAS_FLOOR_BITS
@@ -228,24 +232,27 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
 
     full = getattr(Configs, "full_search_results", False)
     if full:
-        drop = _full_search_gate(ens, indices, banks, banks_t, col_of,
-                                 codes, lens, qcodes, consume, nthreads,
-                                 owned)
+        with span("scoring.gate"):
+            drop = _full_search_gate(ens, indices, banks, banks_t, col_of,
+                                     codes, lens, qcodes, consume, nthreads,
+                                     owned)
     else:
         # candidate selection: each query's weight-rank top candidates
         # (see witch_tpu/pipeline.py:compute_scores for the rationale)
         adj = pre + np.log2(size_arr)[None, :]
         NEAR = min(H, int(Configs.num_hmms) + 4)
-        t0 = time.time()
-        by_j: Dict[int, List[int]] = {}
-        for q in owned:
-            top = np.argsort(-adj[q], kind="stable")[:TOPT]
-            depth = NEAR if np.all(pre[q, top[:NEAR]] >= GATE_SAFE) \
-                else TOPT
-            for j in top[:depth]:
-                by_j.setdefault(int(j), []).append(q)
-        _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
-                     consume, nthreads, t0)
+        with span("scoring.gate") as gate:
+            with span("gate.select"):
+                by_j: Dict[int, List[int]] = {}
+                for q in owned:
+                    top = np.argsort(-adj[q], kind="stable")[:TOPT]
+                    depth = NEAR if np.all(pre[q, top[:NEAR]] >= GATE_SAFE) \
+                        else TOPT
+                    for j in top[:depth]:
+                        by_j.setdefault(int(j), []).append(q)
+            _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
+                         consume, nthreads, gate)
+        Configs.runtime(_gate_line(gate))
         # speculative alignment: the OA kernel runs on the pre-overlay
         # selection while the host runs the overlay below; the overlay
         # moves scores by <= ~6e-3 bits, so the final selection almost
@@ -253,9 +260,11 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
         # the native engine (aligner.py:SpeculativeOA.join)
         spec_on = os.environ.get("WITCH_TPU_SPEC_OA", "") != "0"
         if spec_on:
-            spec_pairs = _speculative_pairs(
-                ens, indices, qcodes, reported, valid, pre, evaluated,
-                gate_ok, size_arr, owned, TOPT)
+            with span("scoring.spec_select") as sp:
+                spec_pairs = _speculative_pairs(
+                    ens, indices, qcodes, reported, valid, pre, evaluated,
+                    gate_ok, size_arr, owned, TOPT)
+                sp.counters["pairs"] = len(spec_pairs)
             if spec_pairs:
                 from .aligner import speculative_oa_start
                 Ldmax = max((len(c) for c in qcodes), default=1)
@@ -263,47 +272,51 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
 
     # ---- exact-f32 print overlay (native, print-boundary pairs) ----
     if band32:
-        t0x = time.time()
-
-        def x32_model(item):
-            j, qset = item
-            qlist = sorted(qset)
-            xargs = _native_args(configure(ens.cores[int(indices[j])],
-                                           multihit=True))
-            cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qlist]
-            okx, seqx, _ = x32(*xargs, cl, 1)
-            return j, qlist, okx, seqx
-
         n32 = ok32 = 0
         band_cover = 0.0
-        with ThreadPoolExecutor(max_workers=nthreads) as ex:
-            for j, qlist, okx, seqx in ex.map(x32_model,
-                                              sorted(band32.items())):
-                for t, q in enumerate(qlist):
-                    n32 += 1
-                    if okx[t]:
-                        ok32 += 1
-                        b = band_of.get((q, j))
-                        if b:
-                            d = abs(float(seqx[t]) - reported[q, j])
-                            band_cover = max(band_cover, d / b)
-                        reported[q, j] = float(seqx[t])
+        with span("scoring.overlay") as overlay:
+
+            def x32_model(item):
+                j, qset = item
+                qlist = sorted(qset)
+                with span("overlay.model", parent=overlay, pairs=len(qlist)):
+                    xargs = _native_args(configure(
+                        ens.cores[int(indices[j])], multihit=True))
+                    cl = [np.ascontiguousarray(qcodes[q], np.int32)
+                          for q in qlist]
+                    okx, seqx, _ = x32(*xargs, cl, 1)
+                return j, qlist, okx, seqx
+
+            with ThreadPoolExecutor(max_workers=nthreads) as ex:
+                for j, qlist, okx, seqx in ex.map(x32_model,
+                                                  sorted(band32.items())):
+                    for t, q in enumerate(qlist):
+                        n32 += 1
+                        if okx[t]:
+                            ok32 += 1
+                            b = band_of.get((q, j))
+                            if b:
+                                d = abs(float(seqx[t]) - reported[q, j])
+                                band_cover = max(band_cover, d / b)
+                            reported[q, j] = float(seqx[t])
+            overlay.counters["pairs"] = n32
         Configs.runtime("  scoring: exact-f32 print overlay %d/%d pairs "
                         "(band cover %.2f) (s): %f"
-                        % (ok32, n32, band_cover, time.time() - t0x))
+                        % (ok32, n32, band_cover, overlay.seconds))
         if band_cover >= 1.0 and mode32 != "full":
             Configs.warning(
                 "exact-f32 overlay: observed |f32-f64| delta (%.1fx band) "
                 "exceeds the empirical candidate band on this data; rerun "
                 "with WITCH_TPU_EXACT_PRINTS=full for guaranteed "
                 "print-exactness" % band_cover)
-    if full:
-        # every pair was evaluated: valid is the complete reported set
-        valid = gate_ok.copy()
-        valid[drop] = False
-    else:
-        valid = _candidate_walk(reported, valid, pre, evaluated, gate_ok,
-                                size_arr, owned, TOPT)
+    with span("scoring.walk"):
+        if full:
+            # every pair was evaluated: valid is the complete reported set
+            valid = gate_ok.copy()
+            valid[drop] = False
+        else:
+            valid = _candidate_walk(reported, valid, pre, evaluated,
+                                    gate_ok, size_arr, owned, TOPT)
     return np.round(reported, 1), valid, indices, banks
 
 
@@ -336,24 +349,20 @@ def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
     included). The device null2 gate is not used here
     (witch_tpu/pipeline.py:528-535). Returns drop [Q, H] (the pairs the
     prefilter found no region in)."""
+    from .hmm.flank_device import prefilter_grid
     from .hmm.profile import configure
     from .native import _domaindef
 
-    from . import _build
-    from .hmm.flank_device import prefilter_grid
-
     Q, H = len(qcodes), len(indices)
-    t0 = time.time()
-    k_ms, k_n = _build.KERNEL_MS["flank"], _build.LAUNCHES["flank"]
-    dec, rows = prefilter_grid(
-        banks_t, [[col_of[int(idx)] for idx in b.hmm_indices]
-                  for b in banks], codes, lens, H)
-    drop = dec < 0
-    k_ms = _build.KERNEL_MS["flank"] - k_ms
-    k_n = _build.LAUNCHES["flank"] - k_n
+    with span("gate.prefilter", kernels="flank") as sp:
+        dec, rows = prefilter_grid(
+            banks_t, [[col_of[int(idx)] for idx in b.hmm_indices]
+                      for b in banks], codes, lens, H)
+        drop = dec < 0
     Configs.runtime("  scoring: device gate prefilter dropped %d/%d pairs "
                     "(flank kernel %.2f ms, %d launches) (s): %f"
-                    % (int(drop.sum()), Q * H, k_ms, k_n, time.time() - t0))
+                    % (int(drop.sum()), Q * H, sp.counters["kernel_ms"],
+                       sp.counters["launches"], sp.seconds))
     if len(owned) < Q:
         # a shard evaluates its own queries' pairs (witch_tpu/pipeline.py:
         # 389-391)
@@ -362,32 +371,35 @@ def _full_search_gate(ens, indices, banks, banks_t, col_of, codes, lens,
         rows = {j: tuple(x[mine[r[0]]] for x in r) for j, r in rows.items()}
         rows = {j: r for j, r in rows.items() if len(r[0])}
     by_j = {j: [int(q) for q in rows[j][0]] for j in sorted(rows)}
-    t0 = time.time()
-
-    def eval_model(j):
-        qs, mo, pb, pe = rows[j]
-        args = _native_args(configure(ens.cores[int(indices[j])],
-                                      multihit=True))
-        cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qs]
-        return j, _domaindef.evaluate_targets_rows(
-            *args, cl, 42, 200, 1, 1, mo, pb, pe, 1)
-
     n_pairs = 0
-    with ThreadPoolExecutor(max_workers=nthreads) as ex:
-        for j, out in ex.map(eval_model, sorted(rows)):
-            n_pairs += len(by_j[j])
-            for t in range(len(by_j[j])):
-                consume(j, by_j[j], out, t)
+    with span("gate.domaindef") as dd:
+
+        def eval_model(j):
+            qs, mo, pb, pe = rows[j]
+            with span("domaindef.model", parent=dd, pairs=len(qs)):
+                args = _native_args(configure(ens.cores[int(indices[j])],
+                                              multihit=True))
+                cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qs]
+                return j, _domaindef.evaluate_targets_rows(
+                    *args, cl, 42, 200, 1, 1, mo, pb, pe, 1)
+
+        with ThreadPoolExecutor(max_workers=nthreads) as ex:
+            for j, out in ex.map(eval_model, sorted(rows)):
+                n_pairs += len(by_j[j])
+                for t in range(len(by_j[j])):
+                    consume(j, by_j[j], out, t)
+        dd.counters["pairs"] = n_pairs
     Configs.runtime("  scoring: native domaindef %d pairs (s): %f"
-                    % (n_pairs, time.time() - t0))
+                    % (n_pairs, dd.seconds))
     return drop
 
 
 def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
-                 consume, nthreads, t0):
-    """The candidate pairs' reporting gate: flank rows (native AVX-512
-    scan), f64 Forward (native, in a side thread), envelope null2
-    (device), then the print-boundary re-evaluations."""
+                 consume, nthreads, gate):
+    """The candidate pairs' reporting gate, inside its span `gate`: flank
+    rows (native AVX-512 scan), f64 Forward (native, in a side thread),
+    envelope null2 (device), then the print-boundary re-evaluations. The
+    gate's numbers go to the span's counters (_gate_line)."""
     from .hmm.profile import configure
     from .native import _domaindef
 
@@ -402,31 +414,36 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
     items = sorted(by_j.items())
     allargs, flank_rows, codes_by, fwd64_by = {}, {}, {}, {}
 
-    def prep_model(item):
-        j, qlist = item
-        args = _native_args(configure(ens.cores[int(indices[j])],
-                                      multihit=True))
-        cl = [np.ascontiguousarray(qcodes[q], np.int32) for q in qlist]
-        _, mo, pb, pe = flank_fn(*args, cl, 1)
-        return j, args, (mo, pb, pe), cl
+    with span("gate.prep") as prep:
 
-    with ThreadPoolExecutor(max_workers=nthreads) as ex:
-        for j, args, rows3, cl in ex.map(prep_model, items):
-            allargs[j] = args
-            flank_rows[j] = rows3
-            codes_by[j] = cl
-    t_prep = time.time()
+        def prep_model(item):
+            j, qlist = item
+            with span("gate.flank", parent=prep, pairs=len(qlist)):
+                args = _native_args(configure(ens.cores[int(indices[j])],
+                                              multihit=True))
+                cl = [np.ascontiguousarray(qcodes[q], np.int32)
+                      for q in qlist]
+                _, mo, pb, pe = flank_fn(*args, cl, 1)
+            return j, args, (mo, pb, pe), cl
+
+        with ThreadPoolExecutor(max_workers=nthreads) as ex:
+            for j, args, rows3, cl in ex.map(prep_model, items):
+                allargs[j] = args
+                flank_rows[j] = rows3
+                codes_by[j] = cl
     f64_exc = []
 
     def run_f64():
         try:
-            def one(item):
-                j, _ = item
-                return j, np.asarray(_domaindef.forward_targets_exact(
-                    *allargs[j], codes_by[j], 1))
-            with ThreadPoolExecutor(max_workers=nthreads) as ex:
-                for j, f64 in ex.map(one, items):
-                    fwd64_by[j] = f64
+            with span("gate.f64", parent=gate) as side:
+                def one(item):
+                    j, qlist = item
+                    with span("f64.model", parent=side, pairs=len(qlist)):
+                        return j, np.asarray(_domaindef.forward_targets_exact(
+                            *allargs[j], codes_by[j], 1))
+                with ThreadPoolExecutor(max_workers=nthreads) as ex:
+                    for j, f64 in ex.map(one, items):
+                        fwd64_by[j] = f64
         except BaseException as e:   # noqa: BLE001 - re-raised below
             f64_exc.append(e)
 
@@ -438,21 +455,23 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
     results, stats = evaluate_gate_device(
         banks_t, bankloc_of_col, allargs, qcodes, by_j, flank_rows,
         nthreads=nthreads)
-    f64_thread.join()
+    with span("gate.f64_wait"):
+        f64_thread.join()
     if f64_exc:
         raise f64_exc[0]
     n_pairs = 0
     pending: Dict[int, List[int]] = {}
-    for j, qlist in items:
-        n_pairs += len(qlist)
-        out = list(results[j])
-        out[3] = fwd64_by[j]
-        hmulti = stats["multi_flags"][j]
-        for t in range(len(qlist)):
-            seq, eps = consume(j, qlist, out, t)
-            if not hmulti[t] and (eps == float("inf")
-                                  or near_print_boundary(seq, eps)):
-                pending.setdefault(j, []).append(t)
+    with span("gate.fold"):
+        for j, qlist in items:
+            n_pairs += len(qlist)
+            out = list(results[j])
+            out[3] = fwd64_by[j]
+            hmulti = stats["multi_flags"][j]
+            for t in range(len(qlist)):
+                seq, eps = consume(j, qlist, out, t)
+                if not hmulti[t] and (eps == float("inf")
+                                      or near_print_boundary(seq, eps)):
+                    pending.setdefault(j, []).append(t)
     n_pend = sum(len(v) for v in pending.values())
     for j, plist in pending.items():
         stats["reeval"](j, plist)
@@ -460,15 +479,30 @@ def _device_gate(ens, indices, banks, banks_t, col_of, qcodes, by_j,
         out[3] = fwd64_by[j]
         for t in plist:
             consume(j, by_j[j], out, t)
-    Configs.runtime(
-        "  scoring: device gate %d pairs (%d env on device, %d multidomain "
-        "host, %d margin + %d boundary re-evals) prep %.2fs null2 %.2fs "
-        "(kernel %.1f ms, %d launches) multi host %.2fs wait %.2fs "
-        "total (s): %f"
-        % (n_pairs, stats["entries"], stats["multi"], stats["guard_margin"],
-           n_pend, t_prep - t0, stats["t_null2"], stats["null2_kernel_ms"],
-           stats["null2_launches"], stats["t_multi_host"], stats["t_wait"],
-           time.time() - t0))
+    gate.counters.update(pairs=n_pairs, envelopes=stats["entries"],
+                         multidomain=stats["multi"],
+                         margin_reevals=stats["guard_margin"],
+                         boundary_reevals=n_pend)
+
+
+def _gate_line(gate):
+    """The device gate's stage line, from its span and its parts' spans:
+    candidate selection and the flank prep pool (prep), the null2 device
+    thread (its kernel's ms and launches), the host multidomain pool
+    beside it and the wait for that thread after the pool."""
+    c = gate.counters
+    null2 = gate.child("gate.null2")
+    return ("  scoring: device gate %d pairs (%d env on device, %d "
+            "multidomain host, %d margin + %d boundary re-evals) prep %.2fs "
+            "null2 %.2fs (kernel %.1f ms, %d launches) multi host %.2fs wait "
+            "%.2fs total (s): %f"
+            % (c["pairs"], c["envelopes"], c["multidomain"],
+               c["margin_reevals"], c["boundary_reevals"],
+               gate.child_seconds("gate.select")
+               + gate.child_seconds("gate.prep"), null2.seconds,
+               null2.counters["kernel_ms"], null2.counters["launches"],
+               gate.child_seconds("gate.multidomain"),
+               gate.child_seconds("gate.wait"), gate.seconds))
 
 
 def rank_and_weight(scores: np.ndarray, valid: np.ndarray,
@@ -541,21 +575,36 @@ def main_alignment_process(device=None):
     (parallel/mesh.py:scoring_mesh; WITCH_TPU_NO_MESH=1 keeps it on one)
     and runs the rest on the current card. A speculative OA
     run that the align stage did not join (the run stopped earlier) is
-    waited out before this returns or raises."""
+    waited out before this returns or raises. The run is one job of
+    spans (spans.py): its root, `job`, is open for the whole run, and its
+    duration is the last line, Total runtime."""
     from .aligner import wait_speculative
-    try:
-        return _alignment_process(device)
-    finally:
-        wait_speculative()
+    with span("job") as job:
+        try:
+            out = _alignment_process(device, job)
+        finally:
+            wait_speculative()
+    Configs.runtime("Total runtime (s): %f" % job.seconds)
+    return out
 
 
-def _alignment_process(device):
+def _write_decomposition(ens, root, parent, gate_event=None):
+    """The decomposition writer's thread: waits for `gate_event` (where
+    given: the scoring stage sets it once the banks are built), then
+    writes `ens`'s artifact directories under `root`."""
+    with span("writer", parent=parent, models=len(ens.cores)):
+        if gate_event is not None:
+            with span("writer.wait"):
+                gate_event.wait(timeout=60.0)
+        write_decomposition(ens, root)
+
+
+def _alignment_process(device, job):
     shard, n_shards = process_shard()
     mesh = scoring_mesh(device, n_shards)
     device = resolve_device(device)
     # the cards this run scores on (a server's .done records them)
     Configs.scoring_cards = [str(d) for d in (mesh or [device])]
-    t_start = time.time()
     molecule = Configs.molecule
     if molecule is None:
         src = (Configs.backbone_path or Configs.query_path
@@ -573,20 +622,20 @@ def _alignment_process(device):
             raise FileNotFoundError(
                 "need -i (unaligned input) or -b (backbone alignment)")
         from .backbone import BackboneJob
-        s = time.time()
-        job = BackboneJob(Configs.input_path,
-                          os.path.join(Configs.outdir, "backbone"), device,
-                          molecule=molecule,
-                          backbone_size=Configs.backbone_size,
-                          selection_strategy=Configs.selection_strategy,
-                          method=Configs.backbone_method, log=Configs.log)
-        bb_path, q_path, tree_path = job.run()
+        with span("backbone") as sp:
+            bb_job = BackboneJob(
+                Configs.input_path, os.path.join(Configs.outdir, "backbone"),
+                device, molecule=molecule,
+                backbone_size=Configs.backbone_size,
+                selection_strategy=Configs.selection_strategy,
+                method=Configs.backbone_method, log=Configs.log)
+            bb_path, q_path, tree_path = bb_job.run()
         Configs.backbone_path = bb_path
         if not Configs.query_path:
             Configs.query_path = q_path
         if not Configs.backbone_tree_path:
             Configs.backbone_tree_path = tree_path
-        Configs.runtime("Time for backbone job (s): %f" % (time.time() - s))
+        Configs.runtime("Time for backbone job (s): %f" % sp.seconds)
     if not (Configs.query_path and os.path.exists(Configs.query_path)):
         raise FileNotFoundError("query sequences missing (-q)")
 
@@ -594,50 +643,49 @@ def _alignment_process(device):
                                           molecule=molecule)
     backbone_length = backbone.n_cols
 
-    s = time.time()
     art_thread = None
     have_dir = os.path.isdir(Configs.hmmdir) and any(
         d.startswith("A_0_") for d in os.listdir(Configs.hmmdir))
-    if have_dir:
-        Configs.log("Found existing HMM directory: %s" % Configs.hmmdir)
-        ens = read_ensemble_dir(Configs.hmmdir, backbone, molecule)
-    else:
-        if not (Configs.backbone_tree_path
-                and os.path.exists(Configs.backbone_tree_path)):
-            # scenario C: estimate the backbone tree (device distances,
-            # host NJ + NNI + ML refinement)
-            from .tree_estimate import estimate_tree
-            tree_dir = os.path.join(Configs.outdir, "tree_decomp")
-            os.makedirs(tree_dir, exist_ok=True)
-            tree_path = os.path.join(tree_dir, "backbone.est.tre")
-            s2 = time.time()
-            with replaced(tree_path) as tmp:
-                estimate_tree(backbone, tmp, device, ml=True,
-                              log=Configs.log)
-            Configs.runtime("Time to estimate backbone tree (s): %f"
-                            % (time.time() - s2))
-            Configs.log("Estimated backbone tree (NJ): %s" % tree_path)
-            Configs.backbone_tree_path = tree_path
-        ens = build_ensemble(backbone, Configs.backbone_tree_path,
-                             Configs.alignment_size,
-                             Configs.alignment_upper_bound, molecule,
-                             n_workers=min(Configs.num_cpus,
-                                           Configs.max_concurrent_jobs))
-        if Configs.keep_decomposition and n_shards == 1:
-            # artifact writes overlap the scoring stage (nothing reads
-            # them back in this run); released once the banks are built.
-            # Sharded, the merging process writes them after the gather,
-            # so no shard reads a sibling's directory half-written
-            Configs._art_gate_event = threading.Event()
-
-            def _write_art():
-                Configs._art_gate_event.wait(timeout=60.0)
-                write_decomposition(ens, Configs.hmmdir)
-
-            art_thread = threading.Thread(target=_write_art, daemon=True)
-            art_thread.start()
-    Configs.runtime("Time to obtain eHMM ensemble (s): %f"
-                    % (time.time() - s))
+    with span("ensemble") as sp:
+        if have_dir:
+            Configs.log("Found existing HMM directory: %s" % Configs.hmmdir)
+            with span("ensemble.read"):
+                ens = read_ensemble_dir(Configs.hmmdir, backbone, molecule)
+        else:
+            if not (Configs.backbone_tree_path
+                    and os.path.exists(Configs.backbone_tree_path)):
+                # scenario C: estimate the backbone tree (device distances,
+                # host NJ + NNI + ML refinement)
+                from .tree_estimate import estimate_tree
+                tree_dir = os.path.join(Configs.outdir, "tree_decomp")
+                os.makedirs(tree_dir, exist_ok=True)
+                tree_path = os.path.join(tree_dir, "backbone.est.tre")
+                with span("ensemble.tree") as tree_sp:
+                    with replaced(tree_path) as tmp:
+                        estimate_tree(backbone, tmp, device, ml=True,
+                                      log=Configs.log)
+                Configs.runtime("Time to estimate backbone tree (s): %f"
+                                % tree_sp.seconds)
+                Configs.log("Estimated backbone tree (NJ): %s" % tree_path)
+                Configs.backbone_tree_path = tree_path
+            ens = build_ensemble(backbone, Configs.backbone_tree_path,
+                                 Configs.alignment_size,
+                                 Configs.alignment_upper_bound, molecule,
+                                 n_workers=min(Configs.num_cpus,
+                                               Configs.max_concurrent_jobs))
+            if Configs.keep_decomposition and n_shards == 1:
+                # artifact writes overlap the scoring stage (nothing reads
+                # them back in this run); released once the banks are
+                # built. Sharded, the merging process writes them after the
+                # gather, so no shard reads a sibling's directory
+                # half-written
+                Configs._art_gate_event = threading.Event()
+                art_thread = threading.Thread(
+                    target=_write_decomposition,
+                    args=(ens, Configs.hmmdir, job, Configs._art_gate_event),
+                    daemon=True)
+                art_thread.start()
+    Configs.runtime("Time to obtain eHMM ensemble (s): %f" % sp.seconds)
     Configs.log("Ensemble of %d HMMs" % len(ens.cores))
 
     tmp_bb_dir = os.path.join(Configs.outdir, "tree_decomp", "backbone")
@@ -648,6 +696,7 @@ def _alignment_process(device):
     qnames, qseqs, qcodes, renamed = _encode_queries(Configs.query_path,
                                                      alphabet)
     Configs.log("Loaded %d queries" % len(qnames))
+    job.counters["fragments"] = len(qnames)
     # query sharding (parallel/dist.py): this process gates and aligns
     # its own contiguous block of queries; the rows are gathered to one
     # process for the merge
@@ -667,48 +716,52 @@ def _alignment_process(device):
         Configs.log("Found existing weights: %s" % weight_path)
         weights = read_weights(weight_path)
     else:
-        s = time.time()
         scores = valid = None
         if have_dir:
-            search = read_search_results(Configs.hmmdir)
-            if search and set(search) == set(ens.indices):
-                Configs.log("Reusing %d hmmsearch result files from %s"
-                            % (len(search), Configs.hmmdir))
-                indices = ens.indices
-                name_to_q = {n: q for q, n in enumerate(qnames)}
-                scores = np.full((len(qnames), len(indices)), -np.inf)
-                valid = np.zeros(scores.shape, bool)
-                for j, idx in enumerate(indices):
-                    for taxon, (_, bits) in search[idx].items():
-                        q = name_to_q.get(taxon)
-                        if q is not None:
-                            scores[q, j] = bits
-                            valid[q, j] = True
+            with span("load_results") as sp:
+                search = read_search_results(Configs.hmmdir)
+                if search and set(search) == set(ens.indices):
+                    Configs.log("Reusing %d hmmsearch result files from %s"
+                                % (len(search), Configs.hmmdir))
+                    indices = ens.indices
+                    name_to_q = {n: q for q, n in enumerate(qnames)}
+                    scores = np.full((len(qnames), len(indices)), -np.inf)
+                    valid = np.zeros(scores.shape, bool)
+                    for j, idx in enumerate(indices):
+                        for taxon, (_, bits) in search[idx].items():
+                            q = name_to_q.get(taxon)
+                            if q is not None:
+                                scores[q, j] = bits
+                                valid[q, j] = True
+            if scores is not None:
                 Configs.runtime("Time to load hmmsearch results (s): %f"
-                                % (time.time() - s))
+                                % sp.seconds)
         if scores is None:
-            scores, valid, indices, banks = compute_scores(
-                ens, qcodes, device, q_owned=q_owned, mesh=mesh)
+            with span("scoring") as sp:
+                scores, valid, indices, banks = compute_scores(
+                    ens, qcodes, device, q_owned=q_owned, mesh=mesh)
             Configs.runtime("Time for all-vs-all Forward scoring (s): %f"
-                            % (time.time() - s))
+                            % sp.seconds)
             if art_thread is not None:
-                art_thread.join()
+                with span("writer.join"):
+                    art_thread.join()
                 art_thread = None
             if Configs.keep_decomposition and n_shards == 1 \
                     and os.path.isdir(Configs.hmmdir):
-                s2 = time.time()
-                for j, idx in enumerate(indices):
-                    res = {qnames[q]: (0.0, float(scores[q, j]))
-                           for q in np.flatnonzero(valid[:, j])}
-                    write_search_results(Configs.hmmdir, int(idx), res)
+                with span("persist", models=len(indices)) as sp:
+                    for j, idx in enumerate(indices):
+                        res = {qnames[q]: (0.0, float(scores[q, j]))
+                               for q in np.flatnonzero(valid[:, j])}
+                        write_search_results(Configs.hmmdir, int(idx), res)
                 Configs.runtime("Time to persist hmmsearch results (s): %f"
-                                % (time.time() - s2))
-        s = time.time()
-        # sharded, only the owned rows were gate-evaluated here
-        w_rows = np.arange(len(qnames)) if q_owned is None else q_owned
-        weights = rank_and_weight(scores[w_rows], valid[w_rows], indices,
-                                  ens.sizes(), [qnames[q] for q in w_rows])
-        Configs.runtime("Time to obtain weights (s): %f" % (time.time() - s))
+                                % sp.seconds)
+        with span("weights") as sp:
+            # sharded, only the owned rows were gate-evaluated here
+            w_rows = np.arange(len(qnames)) if q_owned is None else q_owned
+            weights = rank_and_weight(scores[w_rows], valid[w_rows],
+                                      indices, ens.sizes(),
+                                      [qnames[q] for q in w_rows])
+        Configs.runtime("Time to obtain weights (s): %f" % sp.seconds)
         if Configs.save_weight and n_shards == 1:
             write_weights(weights, weight_path)
 
@@ -718,49 +771,46 @@ def _alignment_process(device):
     checkpoint_path = os.path.join(Configs.outdir, ckpt_name)
     done = read_checkpoint(checkpoint_path)
     a_q = range(len(qnames)) if q_owned is None else q_owned
-    s = time.time()
-    rows, ignored = align_queries(
-        ens, [qnames[q] for q in a_q], [qseqs[q] for q in a_q],
-        [qcodes[q] for q in a_q], weights, backbone_length, device,
-        banks=banks, checkpoint_path=checkpoint_path, done=done)
-    Configs.runtime("Time for per-query alignment (s): %f"
-                    % (time.time() - s))
+    with span("align") as sp:
+        rows, ignored = align_queries(
+            ens, [qnames[q] for q in a_q], [qseqs[q] for q in a_q],
+            [qcodes[q] for q in a_q], weights, backbone_length, device,
+            banks=banks, checkpoint_path=checkpoint_path, done=done)
+    Configs.runtime("Time for per-query alignment (s): %f" % sp.seconds)
 
     if n_shards > 1:
         # every shard's rows, in shard order (= query order, so the merged
         # files are the unsharded run's); one process goes on to merge
-        s = time.time()
-        gathered = gather_rows(rows, ignored, shard, n_shards,
-                               os.path.join(Configs.outdir, "shards"))
-        Configs.runtime("Time to gather shard rows (s): %f"
-                        % (time.time() - s))
+        with span("gather") as sp:
+            gathered = gather_rows(rows, ignored, shard, n_shards,
+                                   os.path.join(Configs.outdir, "shards"))
+        Configs.runtime("Time to gather shard rows (s): %f" % sp.seconds)
         if gathered is None:
             Configs.log("Shard %d/%d: rows staged; merge owned by another "
                         "process" % (shard, n_shards))
-            Configs.runtime("Total runtime (s): %f" % (time.time() - t_start))
             return None
         rows, ignored = gathered
         if Configs.keep_decomposition and not have_dir:
             art_thread = threading.Thread(
-                target=write_decomposition, args=(ens, Configs.hmmdir),
-                daemon=True)
+                target=_write_decomposition,
+                args=(ens, Configs.hmmdir, job), daemon=True)
             art_thread.start()
 
-    s = time.time()
-    mnames, mmat, ins_mask = merge_rows_bytes(
-        backbone.names, backbone.to_bytes_matrix(), rows,
-        collapse_singletons=Configs.collapse_singletons)
     back = {v: k for k, v in renamed.items()}
-    mnames = [back.get(n, n) for n in mnames]
-    write_fasta_bytes(mnames, mmat, Configs.output_path)
-    suffix = Configs.output_path.split(".")[-1]
-    if suffix in ("fa", "fasta"):
-        masked_path = (".".join(Configs.output_path.split(".")[:-1])
-                       + ".masked." + suffix)
-    else:
-        masked_path = Configs.output_path + ".masked.fasta"
-    write_fasta_bytes(mnames, mmat[:, ~ins_mask], masked_path)
-    Configs.runtime("Time to merge all outputs (s): %f" % (time.time() - s))
+    with span("merge") as sp:
+        mnames, mmat, ins_mask = merge_rows_bytes(
+            backbone.names, backbone.to_bytes_matrix(), rows,
+            collapse_singletons=Configs.collapse_singletons)
+        mnames = [back.get(n, n) for n in mnames]
+        write_fasta_bytes(mnames, mmat, Configs.output_path)
+        suffix = Configs.output_path.split(".")[-1]
+        if suffix in ("fa", "fasta"):
+            masked_path = (".".join(Configs.output_path.split(".")[:-1])
+                           + ".masked." + suffix)
+        else:
+            masked_path = Configs.output_path + ".masked.fasta"
+        write_fasta_bytes(mnames, mmat[:, ~ins_mask], masked_path)
+    Configs.runtime("Time to merge all outputs (s): %f" % sp.seconds)
 
     if ignored:
         ignored_path = os.path.join(Configs.outdir, "ignored_queries.fasta")
@@ -771,9 +821,9 @@ def _alignment_process(device):
         Configs.log("Wrote %d ignored queries to %s"
                     % (len(ignored), ignored_path))
     if art_thread is not None:
-        art_thread.join()
+        with span("writer.join"):
+            art_thread.join()
     clear_temp_files()
-    Configs.runtime("Total runtime (s): %f" % (time.time() - t_start))
     Configs.log("WITCH-TPU (torch) finished; output: %s"
                 % Configs.output_path)
     return Configs.output_path
