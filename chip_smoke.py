@@ -67,8 +67,15 @@ Phases:
      selection-drift count; the query rows against the JAX
      package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
      equal, at least DNA1K_JAX_MIN, and for a differing row the device
-     and native pre-score rankings of its top models; after 4d and 4e
-     (item 2), (4m) the data mesh
+     and native pre-score rankings of its top models; (4o) the print
+     overlay's split chain (ops/overlay.py, csrc/overlay.cu) on 4's band
+     pairs, through the pipeline's routing and through the card launcher
+     alone: ok, seq and pre bit-identical to exact_scores32, 2 launches,
+     the card deciding 95% of the pairs or more, each launch's kernel ms
+     beside its serial-chain bound, and the native engine's wall on the
+     same pairs, then a model one stripe too wide falling back, counted;
+     the overlay's entry in the kernels line; after
+     4d and 4e (item 2), (4m) the data mesh
      (witch_tpu_torch/parallel/mesh.py) over every visible card, on a
      one-card host over cuda:0 twice (said on its own line): dna1k's two
      banks on 4's inputs, np.array_equal to 4's single-card bits, each
@@ -254,6 +261,10 @@ DNA1K_BACKBONE = 1000
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM's boost SM clock and the latency of one dependent f32 multiply
+# or add (the overlay kernel's serial-chain bound, phase 4o)
+SM_CLOCK_HZ = 1.98e9
+FP32_DEP_CYCLES = 4
 OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58,
                 "pairhmm": 17}
 F64_OPS_PER_CELL = {"oa": 14}
@@ -497,6 +508,7 @@ class Recorder:
         self.gate, self.null2, self.oa = [], [], []
         self.full, self.counts, self.dist = [], [], []
         self.grid, self.fwd, self.fwd_bits, self.dgate = [], [], [], []
+        self.overlay = []
         orig_gate, orig_null2, orig_oa = (pl.evaluate_gate_device,
                                           gd.null2_envelopes, al.oa_columns)
         orig_full, orig_counts, orig_dist = (
@@ -504,6 +516,13 @@ class Recorder:
         orig_grid = fd.prefilter_grid
         orig_fwd = pl.forward_bits
         orig_dgate = pl._device_gate
+        orig_overlay = pl.overlay_scores
+
+        def overlay(jobs, device, kc, nthreads, parent):
+            self.overlay.append((list(jobs), kc))
+            return orig_overlay(jobs, device, kc, nthreads, parent)
+
+        pl.overlay_scores = overlay
 
         def fwd(bt, codes, lens):
             self.fwd.append((bt, np.array(codes), np.array(lens)))
@@ -562,7 +581,8 @@ class Recorder:
 
     def clear(self):
         for x in (self.gate, self.null2, self.oa, self.full, self.counts,
-                  self.dist, self.grid, self.fwd, self.fwd_bits, self.dgate):
+                  self.dist, self.grid, self.fwd, self.fwd_bits, self.dgate,
+                  self.overlay):
             x.clear()
 
 
@@ -1155,9 +1175,10 @@ def phase_dna(tmp, rec):
     bad = [n for n, s in bb.items() if masked.get(n) != s.upper()]
     check(not bad, "dna1k: %d/%d backbone rows equal the input"
           % (len(bb) - len(bad), len(bb)))
-    check(all(launches[k] > 0 for k in ("forward", "null2", "oa")),
-          "dna1k: forward, null2 and oa launched on the main path %s"
-          % launches)
+    check(all(launches[k] > 0 for k in ("forward", "null2", "oa",
+                                         "overlay")),
+          "dna1k: forward, null2, oa and overlay launched on the main path "
+          "%s" % launches)
     banks_t, bank_row, pairs, Ldmax = rec.oa[-1]
     v = validate_oa(REC_ALIGNER[0], pairs, Ldmax, sample=200, seed=1)
     check(v["above_guard"] == 0,
@@ -1174,6 +1195,123 @@ def phase_dna(tmp, rec):
           "OA start, %s selection-drift host aligns" % drift)
     dna1k_vs_jax(rec, data, masked, ignored)
     return launches
+
+
+def overlay_chain_ms(rows_q):
+    """The serial-chain bound of one overlay launch (csrc/overlay.cu)
+    whose longest item has rows_q = ld x Q: that item's dependent f32
+    operations a row on one thread (Forward: 2Q in the first delete pass
+    + Q in the E fold's D part; Backward: Q in the B fold + 3Q in the
+    first delete pass) x their latency. Launch B's posterior sums and
+    null2 are left out, so it is a lower bound for both launches."""
+    return rows_q * 7 * FP32_DEP_CYCLES / SM_CLOCK_HZ * 1e3
+
+
+def native_scores32(jobs, nthreads):
+    """exact_scores32 on the native engine, one job a worker: (ok, seq,
+    pre) a job."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from witch_tpu_torch.native import _domaindef
+    with ThreadPoolExecutor(max_workers=nthreads) as pool:
+        return list(pool.map(
+            lambda job: _domaindef.exact_scores32(*job[0], job[1], 1), jobs))
+
+
+def overlay_differ(got, ref):
+    """Pairs whose ok differs, or whose seq or pre differs where the
+    native engine decides."""
+    import numpy as np
+    ok, seq, pre = got
+    return sum(int(np.sum(ok[k] != o)) + int(np.sum((seq[k] != s)[o == 1]))
+               + int(np.sum((pre[k] != p)[o == 1]))
+               for k, (o, s, p) in enumerate(ref))
+
+
+def phase_overlay(rec, dev, result):
+    """4o: the print overlay on phase 4's band pairs, through the
+    pipeline's routing (ops/overlay.py:overlay_scores) and through the
+    split chain's card launcher alone, each against exact_scores32 on the
+    same pairs; each launch's kernel ms beside its serial-chain bound;
+    then one model too wide for the kernel, which falls back to the
+    native engine and is counted."""
+    import numpy as np
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.core.alphabet import DNA
+    from witch_tpu_torch.hmm.build import build_hmm, quantize_like_text
+    from witch_tpu_torch.hmm.profile import configure
+    from witch_tpu_torch.native import set_trace_alphabet
+    from witch_tpu_torch.ops import overlay as ov
+    from witch_tpu_torch.pipeline import _native_args
+    from witch_tpu_torch.spans import span
+
+    say("== phase 4o: exact-f32 overlay kernel on dna1k's band pairs")
+    check(rec.overlay, "dna1k: the pipeline ran the print overlay")
+    jobs, kc = rec.overlay[-1]
+    set_trace_alphabet("dna")
+    pairs = sum(len(cl) for _, cl in jobs)
+    t0 = time.time()
+    ref = native_scores32(jobs, 8)
+    t_native = time.time() - t0
+    n0 = _build.LAUNCHES["overlay"]
+    with span("scoring.overlay", kernels="overlay") as sp:
+        got = ov.overlay_scores(jobs, dev, kc, 8, sp)
+    bad = overlay_differ(got, ref)
+    cnt = {k: v for k, v in sp.counters.items() if k != "kernel_ms"}
+    check(bad == 0 and cnt["launches"] == 2
+          and _build.LAUNCHES["overlay"] - n0 == 2,
+          "4o: overlay_scores on %d pairs of %d models: 2 launches, ok, seq "
+          "and pre bit-identical to exact_scores32 (%d differ)"
+          % (pairs, len(jobs), bad))
+    check(cnt["device_pairs"] >= 0.95 * pairs,
+          "4o: the card decided %d of %d pairs (%s)"
+          % (cnt["device_pairs"], pairs, cnt))
+    card = ov.CardLauncher(dev, kc)
+    t0 = time.time()
+    ok, seq, pre, _ = ov.exact_scores(jobs, card, 8)
+    t_card = time.time() - t0
+    bad_card = overlay_differ((ok, seq, pre), ref)
+    check(bad_card == 0 and [c[0] for c in card.calls] == [0, 1],
+          "4o: the card launcher alone: launches A and B, %d pairs differ"
+          % bad_card)
+    launch = {}
+    for (mode, items, rows_q, ms), tag in zip(card.calls, "AB"):
+        launch[tag] = dict(items=items, rows_q=rows_q, ms=ms,
+                           bound_ms=overlay_chain_ms(rows_q))
+        say("  launch %s: %d items, kernel %.2f ms, serial-chain bound "
+            "%.2f ms (longest item ld x Q %d)"
+            % (tag, items, ms, launch[tag]["bound_ms"], rows_q))
+    kms = sum(x["ms"] for x in launch.values())
+    bound = sum(x["bound_ms"] for x in launch.values())
+    say("  card %.3f s (kernel %.2f ms; bound %.2f ms), native engine "
+        "%.3f s (8 threads) on the same pairs" % (t_card, kms, bound,
+                                                   t_native))
+    # a model one stripe past Q_MAX: every pair to exact_scores32
+    rng = np.random.default_rng(19)
+    M = 4 * ov.Q_MAX + 4
+    base = rng.integers(0, 4, M)
+    rows = np.array([np.where(rng.random(M) < 0.1, rng.integers(0, 4, M),
+                              base) for _ in range(6)], np.uint8)
+    core = quantize_like_text(build_hmm(rows, DNA, "dna"))
+    frags = []
+    for _ in range(4):
+        a = int(rng.integers(0, M - 300))
+        frags.append(np.ascontiguousarray(base[a:a + 200], np.int32))
+    wide = [(_native_args(configure(core, multihit=True)), frags)]
+    with span("scoring.overlay", kernels="overlay") as spw:
+        gotw = ov.overlay_scores(wide, dev, kc, 8, spw)
+    cw = spw.counters
+    check(cw["wide"] == len(frags) and cw["device_pairs"] == 0
+          and cw["launches"] == 0
+          and overlay_differ(gotw, native_scores32(wide, 8)) == 0,
+          "4o: a %d-state model's %d pairs fell back to the native engine "
+          "with its scores (%s)" % (M, len(frags), cw))
+    result["overlay"] = dict(pairs=pairs, models=len(jobs), ms=kms,
+                             launch=launch, bound_ms=bound,
+                             bound_by="serial chains", differ=bad + bad_card,
+                             card_s=t_card, native_s=t_native,
+                             counters=cnt)
+    say(json.dumps({"overlay": result["overlay"]}))
 
 
 def mesh_cards():
@@ -2652,6 +2790,7 @@ def main():
                                      result)
         paths["old_witch"] = timed(phase_old_witch, tmp, rec)
         paths["dna1k"] = timed(phase_dna, tmp, rec)
+        timed(phase_overlay, rec, dev, result)
         timed(phase_forward_path, list(rec.fwd), dev, result, "4d_dna1k",
               100)
         timed(phase_oa_path, rec, dev, result, "4e: oa kernel on dna1k's "
@@ -2765,6 +2904,18 @@ def main():
                         k["%s_%s" % (extra, tag)] = r2[extra]
                 k["max_abs_err"] = max(k["max_abs_err"], r2["max_abs_err"])
         kernels.append(k)
+    # the print overlay (4o): bound by its serial chains, not operations or
+    # bytes; its plain time is the native engine's on the same pairs, its
+    # error the pairs that differ from it
+    r = result["overlay"]
+    kernels.append(dict(
+        name="overlay", route="cuda", source="witch_tpu_torch/csrc/overlay.cu",
+        replaces="none (witch_tpu/pipeline.py:420 host engine)",
+        launches=paths["dna1k"]["overlay"],
+        launches_by_path={p: paths[p]["overlay"] for p in paths},
+        differ=r["differ"], ms=r["ms"], plain_ms=r["native_s"] * 1e3,
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        launch=r["launch"], pairs=r["pairs"]))
     say("chip_smoke: all phases passed in %.1f s" % (time.time() - t_start))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

@@ -1198,6 +1198,23 @@ static float fsum_f32(const float *p, int n) {
     return s;
 }
 
+/* esl_abc_FAvgScVec's tail of the f32 null2 chains: a degeneracy is the
+ * unweighted f32 mean of its members' values, the gap code 1.0 */
+static void null2_degenerate_f32(float *null2) {
+    int Kc = g_alpha_kc;
+    for (int c = Kc + 1; c < g_alpha_ncodes; c++) {
+        float s = 0.0f;
+        int n = 0;
+        for (int y = 0; y < Kc; y++)
+            if (g_alpha_expand[(size_t)c * Kc + y] > 0.0) {
+                s += null2[y];
+                n++;
+            }
+        null2[c] = s / (float)n;
+    }
+    null2[Kc] = 1.0f;
+}
+
 /* p7_Null2_ByTrace, exact f32: M and I emissions of the domain's trace
  * positions lump into one striped count plane (the binary's own
  * behavior), normalized by 1/(float)Ld; null2[x] = striped dot with
@@ -1232,18 +1249,7 @@ static void null2_by_trace_f32(const stoch32::OProfile &om,
         float b2 = acc[2] + acc[3];
         null2[x] = (b0 + b2) + xfactor;
     }
-    int ncodes = om.ncodes;
-    for (int c = Kc + 1; c < ncodes; c++) {
-        float s = 0.0f;
-        int n = 0;
-        for (int y = 0; y < Kc; y++)
-            if (g_alpha_expand[(size_t)c * Kc + y] > 0.0) {
-                s += null2[y];
-                n++;
-            }
-        null2[c] = s / (float)n;
-    }
-    null2[Kc] = 1.0f;
+    null2_degenerate_f32(null2);
 }
 
 /* rescore_isolated_domain's scoring half, exact f32: unihit
@@ -1277,6 +1283,14 @@ static bool rescore_isolated_f32(const Model &mo, const int32_t *codes,
     *domcorr_out = domcorr;
     return true;
 }
+
+/* One domain of the score assembly: its envelope score and null2
+ * correction (nats) and its envelope. */
+struct Dom32 { float envsc, domcorr; int ienv, jenv; };
+struct Exact32Dbg;
+static void assemble32(float fwdsc, int L, const std::vector<float> &n2sc,
+                       const std::vector<Dom32> &doms, double *seq_bits,
+                       double *pre_bits, Exact32Dbg *dbg);
 
 /* Exact-f32 reported score for one (model, target) pair, single-
  * envelope regions only (multidomain regions return false -> caller
@@ -1314,8 +1328,7 @@ static bool exact32_target(const Model &mo, const int32_t *codes, int L,
     std::vector<Region> regions = find_regions_f32(
         mocc32.data(), btot.data(), etot.data(), L);
     if (regions.empty()) return false;
-    struct Dom { float envsc, domcorr; int ienv, jenv; };
-    std::vector<Dom> doms;
+    std::vector<Dom32> doms;
     std::vector<float> n2sc(L + 1, 0.0f);
     for (const Region &rg : regions) {
         float best = 0.0f;
@@ -1399,10 +1412,18 @@ static bool exact32_target(const Model &mo, const int32_t *codes, int L,
         }
     }
     /* full-sequence multihit parser score (from the pass above) */
-    float fwdsc = f32full.fwdsc;
+    assemble32(f32full.fwdsc, L, n2sc, doms, seq_bits, pre_bits, g_x32_dbg);
+    return true;
+}
+
+/* p7_pipeline.c's post-domaindef score assembly from the full-sequence
+ * Forward score, the per-position null2 scores n2sc [L+1] and the
+ * domains: seqbias via the flogsum table, reconstruction-score
+ * substitution, all f32 with double divisions by eslCONST_LOG2. */
+static void assemble32(float fwdsc, int L, const std::vector<float> &n2sc,
+                       const std::vector<Dom32> &doms, double *seq_bits,
+                       double *pre_bits, Exact32Dbg *dbg) {
     float nullsc = stoch32::null1_f32(L);
-    const float log_omega = (float)0.0f;   /* unused; log kept double */
-    (void)log_omega;
     double lomega = stoch32::x_log(1.0 / 256.0);
     float seqbias = fsum_f32(n2sc.data(), L + 1);
     seqbias = stoch32::p7_flogsum(0.0f, (float)(lomega + (double)seqbias));
@@ -1413,7 +1434,7 @@ static bool exact32_target(const Model &mo, const int32_t *codes, int L,
     float sum_score = 0.0f;
     float seqbias2 = 0.0f;
     int Ld = 0;
-    for (const Dom &d : doms) {
+    for (const Dom32 &d : doms) {
         if (d.envsc - d.domcorr > 0.0f) {
             sum_score += d.envsc;
             Ld += d.jenv - d.ienv + 1;
@@ -1432,22 +1453,21 @@ static bool exact32_target(const Model &mo, const int32_t *codes, int L,
                          0.69314718055994529);
     float sum2 = (float)(((double)(sum_score - (nullsc + seqbias2))) /
                          0.69314718055994529);
-    if (g_x32_dbg) {
-        g_x32_dbg->fwdsc = fwdsc;
-        g_x32_dbg->nullsc = nullsc;
-        g_x32_dbg->seqbias = seqbias;
-        g_x32_dbg->sum_score = sum_score;
-        g_x32_dbg->seqbias2 = seqbias2;
-        g_x32_dbg->n2sc = n2sc;
-        for (const Dom &d : doms) {
-            g_x32_dbg->envsc.push_back(d.envsc);
-            g_x32_dbg->domcorr.push_back(d.domcorr);
+    if (dbg) {
+        dbg->fwdsc = fwdsc;
+        dbg->nullsc = nullsc;
+        dbg->seqbias = seqbias;
+        dbg->sum_score = sum_score;
+        dbg->seqbias2 = seqbias2;
+        dbg->n2sc = n2sc;
+        for (const Dom32 &d : doms) {
+            dbg->envsc.push_back(d.envsc);
+            dbg->domcorr.push_back(d.domcorr);
         }
     }
     if (Ld > 0 && sum2 > seq_score) { seq_score = sum2; pre_score = pre2; }
     *seq_bits = (double)seq_score;
     *pre_bits = (double)pre_score;
-    return true;
 }
 
 static void evaluate_target(const Model &mo_in, const int32_t *codes,
@@ -3754,6 +3774,399 @@ static PyObject *exact_scores32(PyObject *, PyObject *args) {
     return Py_BuildValue("NNN", aok, asq, apr);
 }
 
+/* ---- exact_scores32 split at its transcendental functions ------------
+ *
+ * The print overlay on a card (ops/overlay.py, csrc/overlay.cu) runs
+ * exact32_target in three host stages around two launches: the striped
+ * tables here; launch A (the full-sequence multihit Forward and Backward,
+ * stream mode) -> exact32_regions (domain decoding, the region scan,
+ * fwdsc); launch B (per single-envelope region, the unihit Forward,
+ * Backward, posterior decoding and null2 by expectation) ->
+ * exact32_finish (n2sc, domcorr, envsc and the score assembly). Every
+ * libm call (x_log, x_logf, p7_flogsum) stays in these host stages.
+ * exact32_intermediates computes both launches' outputs on the host with
+ * the stoch32 engine, so the split can be held against exact_scores32
+ * without a card. */
+
+/* f32 Forward score from a Forward's xmx rows [L+1][6]: totscale
+ * replayed from the SCALE column in row order (a rescaled row stores
+ * its pre-rescale xE > 1e4, every other row 1.0), as forward_f32 sums it */
+static float fwdsc_from_xmx(const float *xmx, int L, float moveC) {
+    float totscale = 0.0f;
+    for (int i = 1; i <= L; i++) {
+        float s = xmx[(size_t)i * 6 + stoch32::XMX_SCALE];
+        if (s != 1.0f)
+            totscale = (float)((double)totscale + stoch32::x_log((double)s));
+    }
+    float xC = xmx[(size_t)L * 6 + stoch32::XMX_C];
+    return (float)(stoch32::x_log((double)xC * (double)moveC)
+                   + (double)totscale);
+}
+
+static PyArrayObject *new_f32(npy_intp n) {
+    return (PyArrayObject *)PyArray_ZEROS(1, &n, NPY_FLOAT32, 0);
+}
+static PyArrayObject *new_i32(npy_intp n) {
+    return (PyArrayObject *)PyArray_ZEROS(1, &n, NPY_INT32, 0);
+}
+
+static bool get1d(PyObject *o, int type, npy_intp n, const void **p,
+                  const char *what) {
+    PyArrayObject *a = (PyArrayObject *)o;
+    if (!PyArray_Check(o) || PyArray_TYPE(a) != type ||
+        PyArray_NDIM(a) != 1 || !PyArray_IS_C_CONTIGUOUS(a) ||
+        (n >= 0 && PyArray_DIM(a, 0) != n)) {
+        PyErr_Format(PyExc_TypeError, "%s: wrong dtype, shape or layout",
+                     what);
+        return false;
+    }
+    *p = PyArray_DATA(a);
+    return true;
+}
+
+/* exact32_tables(msc, t.., bm) -> (Q, nj, rfv f32[ncodes*Q*4],
+ * tfv f32[8*Q*4]): the striped profile exact_scores32 builds */
+static PyObject *exact32_tables(PyObject *, PyObject *args) {
+    PyObject *omsc, *ot[8];
+    if (!PyArg_ParseTuple(args, "OOOOOOOOO", &omsc, &ot[0], &ot[1], &ot[2],
+                          &ot[3], &ot[4], &ot[5], &ot[6], &ot[7]))
+        return NULL;
+    PyObject *none = PyList_New(0);
+    Model mo;
+    std::vector<const int32_t *> cptrv;
+    std::vector<int> clenv;
+    bool okp = parse_model_targets(omsc, ot, none, &mo, &cptrv, &clenv);
+    Py_DECREF(none);
+    if (!okp) return NULL;
+    Py_BEGIN_ALLOW_THREADS
+    mo.build_oprof();
+    Py_END_ALLOW_THREADS
+    if (!mo.oprof) {
+        PyErr_SetString(PyExc_RuntimeError, "alphabet not set");
+        return NULL;
+    }
+    const stoch32::OProfile &op = *mo.oprof;
+    PyArrayObject *arf = new_f32((npy_intp)op.rfv.size());
+    PyArrayObject *atf = new_f32((npy_intp)op.tfv.size());
+    if (!arf || !atf) { Py_XDECREF(arf); Py_XDECREF(atf); return NULL; }
+    std::memcpy(PyArray_DATA(arf), op.rfv.data(),
+                op.rfv.size() * sizeof(float));
+    std::memcpy(PyArray_DATA(atf), op.tfv.data(),
+                op.tfv.size() * sizeof(float));
+    return Py_BuildValue("idNN", op.Q, (double)op.nj, arf, atf);
+}
+
+/* exact32_intermediates(msc, t.., bm, codes_list, i0 i32[N], ld i32[N],
+ * lseq i32[N], mode, nthreads) -> (xmx_f f32[sum(ld+1)*6], xmx_b (same),
+ * flags i32[N], null2 f32[N*Kc]): the outputs of the overlay's launches
+ * on the host. Item n runs on codes_list[n][i0 .. i0+ld). mode 0
+ * (launch A): multihit xf_set(lseq, nj), Forward then Backward in
+ * stream mode; flags bit 0 = the Backward took its own scales. mode 1
+ * (launch B): unihit xf_set_unihit(lseq), Forward, Backward,
+ * decoding_f32 and null2_by_expectation_f32 (canonical codes, xfactor
+ * added); flags bit 1 = decoding refused (null2 left 0). */
+static PyObject *exact32_intermediates(PyObject *, PyObject *args) {
+    PyObject *omsc, *ot[8], *olist, *oi0, *old, *ols;
+    int mode, nthreads;
+    if (!PyArg_ParseTuple(args, "OOOOOOOOOOOOOii", &omsc, &ot[0], &ot[1],
+                          &ot[2], &ot[3], &ot[4], &ot[5], &ot[6], &ot[7],
+                          &olist, &oi0, &old, &ols, &mode, &nthreads))
+        return NULL;
+    Model mo;
+    std::vector<const int32_t *> cptrv;
+    std::vector<int> clenv;
+    if (!parse_model_targets(omsc, ot, olist, &mo, &cptrv, &clenv))
+        return NULL;
+    npy_intp N = (npy_intp)cptrv.size();
+    const int32_t *i0, *ld, *ls;
+    if (!get1d(oi0, NPY_INT32, N, (const void **)&i0, "i0") ||
+        !get1d(old, NPY_INT32, N, (const void **)&ld, "ld") ||
+        !get1d(ols, NPY_INT32, N, (const void **)&ls, "lseq"))
+        return NULL;
+    std::vector<size_t> off(N + 1, 0);
+    for (npy_intp n = 0; n < N; n++) {
+        if (ld[n] < 1 || i0[n] < 0 || i0[n] + ld[n] > clenv[n]) {
+            PyErr_SetString(PyExc_ValueError, "item outside its codes");
+            return NULL;
+        }
+        off[n + 1] = off[n] + (size_t)(ld[n] + 1) * 6;
+    }
+    mo.build_oprof();
+    if (!mo.oprof) {
+        PyErr_SetString(PyExc_RuntimeError, "alphabet not set");
+        return NULL;
+    }
+    const stoch32::OProfile &om = *mo.oprof;
+    int Kc = g_alpha_kc;
+    PyArrayObject *axf = new_f32((npy_intp)off[N]);
+    PyArrayObject *axb = new_f32((npy_intp)off[N]);
+    PyArrayObject *afl = new_i32(N);
+    PyArrayObject *an2 = new_f32(N * Kc);
+    if (!axf || !axb || !afl || !an2) {
+        Py_XDECREF(axf); Py_XDECREF(axb); Py_XDECREF(afl); Py_XDECREF(an2);
+        return NULL;
+    }
+    float *xf_out = (float *)PyArray_DATA(axf);
+    float *xb_out = (float *)PyArray_DATA(axb);
+    int32_t *fl = (int32_t *)PyArray_DATA(afl);
+    float *n2 = (float *)PyArray_DATA(an2);
+    Py_BEGIN_ALLOW_THREADS
+    std::atomic<npy_intp> next(0);
+    auto work = [&]() {
+        stoch32::Fwd32 f, b, pp;
+        std::vector<float> null2(om.ncodes, 0.0f);
+        for (;;) {
+            npy_intp n = next.fetch_add(1);
+            if (n >= N) break;
+            const int32_t *codes = cptrv[n] + i0[n];
+            int L = ld[n];
+            stoch32::XF xf;
+            int flags = 0;
+            if (mode == 0) {
+                stoch32::xf_set(&xf, ls[n], om.nj);
+                stoch32::forward_f32(om, xf, codes, L, &f, true);
+                stoch32::backward_f32(om, xf, codes, L, f, &b, true);
+            } else {
+                stoch32::xf_set_unihit(&xf, ls[n]);
+                stoch32::forward_f32(om, xf, codes, L, &f);
+                stoch32::backward_f32(om, xf, codes, L, f, &b);
+                if (!stoch32::decoding_f32(om, xf, f, b, &pp)) {
+                    flags |= 2;
+                } else {
+                    stoch32::null2_by_expectation_f32(
+                        om, xf, &pp, g_alpha_expand.data(), Kc,
+                        null2.data());
+                    std::memcpy(n2 + (size_t)n * Kc, null2.data(),
+                                (size_t)Kc * sizeof(float));
+                }
+            }
+            if (b.own_scales) flags |= 1;
+            fl[n] = flags;
+            std::memcpy(xf_out + off[n], f.xmx.data(),
+                        f.xmx.size() * sizeof(float));
+            std::memcpy(xb_out + off[n], b.xmx.data(),
+                        b.xmx.size() * sizeof(float));
+        }
+    };
+    int nt = nthreads < 1 ? 1 : (nthreads > 16 ? 16 : nthreads);
+    if (nt == 1) work();
+    else {
+        std::vector<std::thread> threads;
+        for (int t = 0; t < nt; t++) threads.emplace_back(work);
+        for (auto &th : threads) th.join();
+    }
+    Py_END_ALLOW_THREADS
+    return Py_BuildValue("NNNN", axf, axb, afl, an2);
+}
+
+/* exact32_regions(xmx_f, xmx_b, flags i32[N], L i32[N], nj f32[N]) ->
+ * (status i32[N], fwdsc f32[N], reg_pair i32[R], reg_i i32[R],
+ * reg_j i32[R]): launch A's rows -> exact32_target's domain decoding,
+ * region scan and best < 0.20 test. status 0: every region is a single
+ * envelope (listed, in position order); 1: no region (ok = 0); 2: a
+ * multidomain region (the whole pair goes to exact_scores32); 3: the
+ * Backward took its own scales or decoding overflowed (ok = 0, as
+ * exact32_target refuses it). xmx rows of pair n start at
+ * sum(L[:n] + 1) * 6. */
+static PyObject *exact32_regions(PyObject *, PyObject *args) {
+    PyObject *oxf, *oxb, *ofl, *oL, *onj;
+    if (!PyArg_ParseTuple(args, "OOOOO", &oxf, &oxb, &ofl, &oL, &onj))
+        return NULL;
+    const int32_t *fl, *Ls;
+    const float *njs, *xf, *xb;
+    if (!get1d(oL, NPY_INT32, -1, (const void **)&Ls, "L")) return NULL;
+    npy_intp N = PyArray_DIM((PyArrayObject *)oL, 0);
+    size_t tot = 0;
+    for (npy_intp n = 0; n < N; n++) tot += (size_t)(Ls[n] + 1) * 6;
+    if (!get1d(ofl, NPY_INT32, N, (const void **)&fl, "flags") ||
+        !get1d(onj, NPY_FLOAT32, N, (const void **)&njs, "nj") ||
+        !get1d(oxf, NPY_FLOAT32, (npy_intp)tot, (const void **)&xf,
+               "xmx_f") ||
+        !get1d(oxb, NPY_FLOAT32, (npy_intp)tot, (const void **)&xb,
+               "xmx_b"))
+        return NULL;
+    std::vector<int32_t> status(N, 0);
+    std::vector<float> fwdsc(N, 0.0f);
+    std::vector<int32_t> rp, ri, rj;
+    Py_BEGIN_ALLOW_THREADS
+    stoch32::Fwd32 f, b;
+    std::vector<float> mocc, btot, etot;
+    size_t off = 0;
+    for (npy_intp n = 0; n < N; n++) {
+        int L = Ls[n];
+        size_t len = (size_t)(L + 1) * 6;
+        stoch32::XF xff;
+        stoch32::xf_set(&xff, L, njs[n]);
+        f.L = b.L = L;
+        f.xmx.assign(xf + off, xf + off + len);
+        b.xmx.assign(xb + off, xb + off + len);
+        b.own_scales = (fl[n] & 1) != 0;
+        off += len;
+        fwdsc[n] = fwdsc_from_xmx(f.xmx.data(), L, xff.move[stoch32::XF_C]);
+        mocc.assign(L + 1, 0.0f);
+        btot.assign(L + 1, 0.0f);
+        etot.assign(L + 1, 0.0f);
+        if (!stoch32::domain_decoding_f32(xff, f, b, mocc.data(),
+                                          btot.data(), etot.data())) {
+            status[n] = 3;
+            continue;
+        }
+        std::vector<Region> regions = find_regions_f32(
+            mocc.data(), btot.data(), etot.data(), L);
+        if (regions.empty()) {
+            status[n] = 1;
+            continue;
+        }
+        size_t first = rp.size();
+        for (const Region &rg : regions) {
+            float best = 0.0f;
+            for (int z = rg.i; z <= rg.j; z++) {
+                float epre = etot[z] - etot[rg.i - 1];
+                float bpost = btot[rg.j] - btot[z - 1];
+                float v = epre < bpost ? epre : bpost;
+                if (v > best) best = v;
+            }
+            if (!(best < 0.20f)) {
+                status[n] = 2;
+                break;
+            }
+            rp.push_back((int32_t)n);
+            ri.push_back(rg.i);
+            rj.push_back(rg.j);
+        }
+        if (status[n] == 2) {
+            rp.resize(first); ri.resize(first); rj.resize(first);
+        }
+    }
+    Py_END_ALLOW_THREADS
+    npy_intp R = (npy_intp)rp.size();
+    PyArrayObject *ast = new_i32(N), *afw = new_f32(N);
+    PyArrayObject *arp = new_i32(R), *ari = new_i32(R), *arj = new_i32(R);
+    if (!ast || !afw || !arp || !ari || !arj) {
+        Py_XDECREF(ast); Py_XDECREF(afw); Py_XDECREF(arp);
+        Py_XDECREF(ari); Py_XDECREF(arj);
+        return NULL;
+    }
+    std::memcpy(PyArray_DATA(ast), status.data(), N * sizeof(int32_t));
+    std::memcpy(PyArray_DATA(afw), fwdsc.data(), N * sizeof(float));
+    if (R) {
+        std::memcpy(PyArray_DATA(arp), rp.data(), R * sizeof(int32_t));
+        std::memcpy(PyArray_DATA(ari), ri.data(), R * sizeof(int32_t));
+        std::memcpy(PyArray_DATA(arj), rj.data(), R * sizeof(int32_t));
+    }
+    return Py_BuildValue("NNNNN", ast, afw, arp, ari, arj);
+}
+
+/* exact32_finish(codes_list, fwdsc f32[P], env_pair i32[E], env_i,
+ * env_j, env_xmx f32[sum(Ld+1)*6], env_flags i32[E], env_null2
+ * f32[E*Kc]) -> (ok u8[P], seq f64[P], pre f64[P]): launch B's outputs
+ * -> rescore_isolated_f32's n2sc, domcorr and envsc, then
+ * exact32_target's score assembly, for pairs whose regions are all
+ * single envelopes (each pair's envelopes consecutive, in position
+ * order; a pair with a refused envelope gets ok = 0). */
+static PyObject *exact32_finish(PyObject *, PyObject *args) {
+    PyObject *olist, *ofw, *oep, *oei, *oej, *oex, *oef, *oen;
+    if (!PyArg_ParseTuple(args, "OOOOOOOO", &olist, &ofw, &oep, &oei, &oej,
+                          &oex, &oef, &oen))
+        return NULL;
+    if (!PyList_Check(olist)) {
+        PyErr_SetString(PyExc_TypeError, "codes_list must be a list");
+        return NULL;
+    }
+    npy_intp P = PyList_GET_SIZE(olist);
+    std::vector<const int32_t *> cptr(P);
+    std::vector<int> clen(P);
+    for (npy_intp n = 0; n < P; n++) {
+        const void *p;
+        if (!get1d(PyList_GET_ITEM(olist, n), NPY_INT32, -1, &p, "codes"))
+            return NULL;
+        cptr[n] = (const int32_t *)p;
+        clen[n] = (int)PyArray_DIM((PyArrayObject *)PyList_GET_ITEM(olist,
+                                                                     n), 0);
+        for (int i = 0; i < clen[n]; i++)
+            if (cptr[n][i] < 0 || cptr[n][i] >= g_alpha_ncodes) {
+                PyErr_SetString(PyExc_ValueError, "code out of range");
+                return NULL;
+            }
+    }
+    const float *fw, *ex, *en;
+    const int32_t *ep, *ei, *ej, *ef;
+    if (!get1d(oep, NPY_INT32, -1, (const void **)&ep, "env_pair"))
+        return NULL;
+    npy_intp E = PyArray_DIM((PyArrayObject *)oep, 0);
+    int Kc = g_alpha_kc, ncodes = g_alpha_ncodes;
+    if (!get1d(ofw, NPY_FLOAT32, P, (const void **)&fw, "fwdsc") ||
+        !get1d(oei, NPY_INT32, E, (const void **)&ei, "env_i") ||
+        !get1d(oej, NPY_INT32, E, (const void **)&ej, "env_j") ||
+        !get1d(oef, NPY_INT32, E, (const void **)&ef, "env_flags") ||
+        !get1d(oen, NPY_FLOAT32, E * Kc, (const void **)&en, "env_null2"))
+        return NULL;
+    size_t tot = 0;
+    for (npy_intp e = 0; e < E; e++) {
+        if (ep[e] < 0 || ep[e] >= P || ei[e] < 1 || ej[e] < ei[e] ||
+            ej[e] > clen[ep[e]] || (e && ep[e] < ep[e - 1])) {
+            PyErr_SetString(PyExc_ValueError, "envelope outside its pair");
+            return NULL;
+        }
+        tot += (size_t)(ej[e] - ei[e] + 2) * 6;
+    }
+    if (!get1d(oex, NPY_FLOAT32, (npy_intp)tot, (const void **)&ex,
+               "env_xmx"))
+        return NULL;
+    std::vector<uint8_t> okv(P, 0);
+    std::vector<double> seqv(P, 0.0), prev_(P, 0.0);
+    Py_BEGIN_ALLOW_THREADS
+    std::vector<Dom32> doms;
+    std::vector<float> n2sc, null2(ncodes, 0.0f);
+    npy_intp e = 0;
+    size_t xoff = 0;
+    for (npy_intp n = 0; n < P; n++) {
+        const int32_t *codes = cptr[n];
+        int L = clen[n];
+        stoch32::XF xfu;
+        stoch32::xf_set_unihit(&xfu, L);
+        n2sc.assign(L + 1, 0.0f);
+        doms.clear();
+        bool ok = true;
+        for (; e < E && ep[e] == n; e++) {
+            int i = ei[e], j = ej[e], Ld = j - i + 1;
+            const float *xmx = ex + xoff;
+            xoff += (size_t)(Ld + 1) * 6;
+            if (!ok || (ef[e] & 2)) { ok = false; continue; }
+            std::memcpy(null2.data(), en + (size_t)e * Kc,
+                        (size_t)Kc * sizeof(float));
+            null2_degenerate_f32(null2.data());
+            float domcorr = 0.0f;
+            for (int pos = i; pos <= j; pos++)
+                n2sc[pos] = stoch32::x_logf(null2[codes[pos - 1]]);
+            for (int pos = i; pos <= j; pos++) domcorr += n2sc[pos];
+            float envsc = fwdsc_from_xmx(xmx, Ld, xfu.move[stoch32::XF_C]);
+            doms.push_back({envsc, domcorr, i, j});
+        }
+        if (!ok) continue;
+        okv[n] = 1;
+        assemble32(fw[n], L, n2sc, doms, &seqv[n], &prev_[n], nullptr);
+    }
+    Py_END_ALLOW_THREADS
+    npy_intp dim = P;
+    PyArrayObject *aok = (PyArrayObject *)PyArray_ZEROS(1, &dim, NPY_UINT8,
+                                                        0);
+    PyArrayObject *asq = (PyArrayObject *)PyArray_ZEROS(1, &dim,
+                                                        NPY_FLOAT64, 0);
+    PyArrayObject *apr = (PyArrayObject *)PyArray_ZEROS(1, &dim,
+                                                        NPY_FLOAT64, 0);
+    if (!aok || !asq || !apr) {
+        Py_XDECREF(aok); Py_XDECREF(asq); Py_XDECREF(apr);
+        return NULL;
+    }
+    if (P) {
+        std::memcpy(PyArray_DATA(aok), okv.data(), P);
+        std::memcpy(PyArray_DATA(asq), seqv.data(), P * sizeof(double));
+        std::memcpy(PyArray_DATA(apr), prev_.data(), P * sizeof(double));
+    }
+    return Py_BuildValue("NNN", aok, asq, apr);
+}
+
 /* dbg_f32_ensemble(msc, t.., bm, codes i32, Lseq, seed, nsamples):
  * run the exact-f32 region ensemble and dump every sampled segment as
  * (sample, i, j, k, m) i32 rows. */
@@ -3917,63 +4330,6 @@ static PyObject *dbg_f32_decode_rows(PyObject *, PyObject *args) {
     return Py_BuildValue("NNN", am, ab, ae);
 }
 
-/* dbg_oprofile(msc, t.., bm, Lseq): dump the f32 striped profile this
- * engine builds -> (Q, rfv [ncodes, Q*4], tfv [8Q, 4], xf [4, 2]).
- * Diagnostic for lane-level comparison against the oracle binary's own
- * p7_oprofile_Convert output. */
-static PyObject *dbg_oprofile(PyObject *, PyObject *args) {
-    PyObject *omsc, *ot[8];
-    int Lseq;
-    if (!PyArg_ParseTuple(args, "OOOOOOOOOi", &omsc,
-                          &ot[0], &ot[1], &ot[2], &ot[3], &ot[4], &ot[5],
-                          &ot[6], &ot[7], &Lseq))
-        return NULL;
-    PyArrayObject *amsc = (PyArrayObject *)omsc;
-    Model mo;
-    mo.M = (int)PyArray_DIM(amsc, 0) - 1;
-    mo.K = (int)PyArray_DIM(amsc, 1);
-    mo.msc = (const double *)PyArray_DATA(amsc);
-    const double *tp[8];
-    npy_intp tn;
-    for (int i = 0; i < 8; i++) {
-        if (!get1d_f64(ot[i], &tp[i], &tn)) return NULL;
-    }
-    mo.t_mm = tp[0]; mo.t_mi = tp[1]; mo.t_md = tp[2]; mo.t_im = tp[3];
-    mo.t_ii = tp[4]; mo.t_dm = tp[5]; mo.t_dd = tp[6]; mo.bm = tp[7];
-    mo.build_oprof();
-    if (!mo.oprof) {
-        PyErr_SetString(PyExc_RuntimeError, "alphabet not set");
-        return NULL;
-    }
-    const stoch32::OProfile &op = *mo.oprof;
-    stoch32::XF xf;
-    stoch32::xf_set(&xf, Lseq, op.nj);
-    npy_intp drf[2] = {op.ncodes, (npy_intp)op.Q * 4};
-    npy_intp dtf[2] = {(npy_intp)(8 * op.Q), 4};
-    npy_intp dxf[2] = {4, 2};
-    PyArrayObject *arf = (PyArrayObject *)PyArray_SimpleNew(2, drf,
-                                                            NPY_FLOAT32);
-    PyArrayObject *atf = (PyArrayObject *)PyArray_SimpleNew(2, dtf,
-                                                            NPY_FLOAT32);
-    PyArrayObject *axf = (PyArrayObject *)PyArray_SimpleNew(2, dxf,
-                                                            NPY_FLOAT32);
-    if (!arf || !atf || !axf) {
-        Py_XDECREF(arf); Py_XDECREF(atf); Py_XDECREF(axf);
-        return NULL;
-    }
-    std::memcpy(PyArray_DATA(arf), op.rfv.data(),
-                op.rfv.size() * sizeof(float));
-    std::memcpy(PyArray_DATA(atf), op.tfv.data(),
-                op.tfv.size() * sizeof(float));
-    float *px = (float *)PyArray_DATA(axf);
-    for (int s = 0; s < 4; s++) {
-        px[s * 2 + 0] = xf.move[s];
-        px[s * 2 + 1] = xf.loop[s];
-    }
-    PyObject *ret = Py_BuildValue("iNNN", op.Q, arf, atf, axf);
-    return ret;
-}
-
 /* format_nats_rows(probs f64 2D, sep str): HMMER text formatting of a
  * probability block — each row becomes "  "-joined "%.5f" of -log(p)
  * ("*" for p == 0).  Native because the .hmm writer's per-element
@@ -4078,6 +4434,15 @@ static PyMethodDef methods[] = {
     {"exact_scores32", exact_scores32, METH_VARARGS,
      "exact-f32 reported scores (single-envelope pairs) -> "
      "(ok, seq_bits, pre_bits)"},
+    {"exact32_tables", exact32_tables, METH_VARARGS,
+     "exact_scores32's striped profile -> (Q, nj, rfv, tfv)"},
+    {"exact32_intermediates", exact32_intermediates, METH_VARARGS,
+     "the print overlay's launch A (mode 0) or B (mode 1) outputs on the "
+     "host -> (xmx_f, xmx_b, flags, null2)"},
+    {"exact32_regions", exact32_regions, METH_VARARGS,
+     "launch A rows -> (status, fwdsc, reg_pair, reg_i, reg_j)"},
+    {"exact32_finish", exact32_finish, METH_VARARGS,
+     "launch B outputs -> (ok, seq_bits, pre_bits)"},
     {"dbg_f32_ensemble", dbg_f32_ensemble, METH_VARARGS,
      "diagnostic: exact-f32 region ensemble segment dump"},
     {"dbg_f32_backward", dbg_f32_backward, METH_VARARGS,
@@ -4086,8 +4451,6 @@ static PyMethodDef methods[] = {
      "diagnostic: exact-f32 striped Forward matrix dump"},
     {"dbg_f32_decode_rows", dbg_f32_decode_rows, METH_VARARGS,
      "diagnostic: exact-f32 domain-decoding mocc/btot/etot rows"},
-    {"dbg_oprofile", dbg_oprofile, METH_VARARGS,
-     "diagnostic: dump the exact-f32 striped profile arrays"},
     {"format_nats_rows", format_nats_rows, METH_VARARGS,
      "HMMER text formatting of a probability block -> list of str"},
     {"set_icc_libm", set_icc_libm, METH_VARARGS,

@@ -47,6 +47,7 @@ from .hmm.gate_device import evaluate_gate_device, near_print_boundary
 from .io.fasta import read_fasta, write_fasta_bytes
 from .merger import merge_rows_bytes
 from .ops.forward import forward_bits
+from .ops.overlay import overlay_scores
 from .parallel.dist import (gather_rows, process_shard, replaced,
                             shard_indices)
 from .parallel.mesh import scoring_mesh, sharded_forward_bits
@@ -270,35 +271,31 @@ def compute_scores(ens: Ensemble, qcodes: List[np.ndarray], device,
                 Ldmax = max((len(c) for c in qcodes), default=1)
                 speculative_oa_start(ens, device, banks, spec_pairs, Ldmax)
 
-    # ---- exact-f32 print overlay (native, print-boundary pairs) ----
+    # ---- exact-f32 print overlay (print-boundary pairs): the native
+    # engine split at its libm calls, its launches on the card or on the
+    # host engine ----
     if band32:
         n32 = ok32 = 0
         band_cover = 0.0
-        with span("scoring.overlay") as overlay:
-
-            def x32_model(item):
-                j, qset = item
-                qlist = sorted(qset)
-                with span("overlay.model", parent=overlay, pairs=len(qlist)):
-                    xargs = _native_args(configure(
-                        ens.cores[int(indices[j])], multihit=True))
-                    cl = [np.ascontiguousarray(qcodes[q], np.int32)
-                          for q in qlist]
-                    okx, seqx, _ = x32(*xargs, cl, 1)
-                return j, qlist, okx, seqx
-
-            with ThreadPoolExecutor(max_workers=nthreads) as ex:
-                for j, qlist, okx, seqx in ex.map(x32_model,
-                                                  sorted(band32.items())):
-                    for t, q in enumerate(qlist):
-                        n32 += 1
-                        if okx[t]:
-                            ok32 += 1
-                            b = band_of.get((q, j))
-                            if b:
-                                d = abs(float(seqx[t]) - reported[q, j])
-                                band_cover = max(band_cover, d / b)
-                            reported[q, j] = float(seqx[t])
+        with span("scoring.overlay", kernels="overlay") as overlay:
+            items = [(j, sorted(qset)) for j, qset in sorted(band32.items())]
+            jobs = [(_native_args(configure(ens.cores[int(indices[j])],
+                                            multihit=True)),
+                     [np.ascontiguousarray(qcodes[q], np.int32)
+                      for q in qlist]) for j, qlist in items]
+            okl, seql, _ = overlay_scores(jobs, device,
+                                          ALPHABETS[ens.molecule].K,
+                                          nthreads, overlay)
+            for (j, qlist), okx, seqx in zip(items, okl, seql):
+                for t, q in enumerate(qlist):
+                    n32 += 1
+                    if okx[t]:
+                        ok32 += 1
+                        b = band_of.get((q, j))
+                        if b:
+                            d = abs(float(seqx[t]) - reported[q, j])
+                            band_cover = max(band_cover, d / b)
+                        reported[q, j] = float(seqx[t])
             overlay.counters["pairs"] = n32
         Configs.runtime("  scoring: exact-f32 print overlay %d/%d pairs "
                         "(band cover %.2f) (s): %f"
