@@ -95,14 +95,16 @@ def plan_launches(lds, models, wp: int, row_bytes: int,
 def scratch_cap(dev) -> int:
     """Half the memory PyTorch can still hand out on the card (free on
     the device plus its cached, unused blocks), shared out among the
-    run's query shards: the most scratch one launch may hold. Shards
-    may share one card and measure its free memory at the same moment,
-    so n of them together stay within half of it. Only the grouping of
-    launches depends on this, not what an instance computes."""
+    query shards on this card (parallel/dist.py:card_sharers): the most
+    scratch one launch may hold. Shards on one card may measure its free
+    memory at the same moment, so n of them together stay within half
+    of it; a shard alone on its card keeps the whole half. Only the
+    grouping of launches depends on this, not what an instance
+    computes."""
     import torch
 
-    from ..parallel.dist import process_shard
+    from ..parallel.dist import card_sharers
     free, _ = torch.cuda.mem_get_info(dev)
     avail = free + torch.cuda.memory_reserved(dev) \
         - torch.cuda.memory_allocated(dev)
-    return avail // (2 * process_shard()[1])
+    return avail // (2 * card_sharers())

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -48,8 +49,8 @@ from .io.fasta import read_fasta, write_fasta_bytes
 from .merger import merge_rows_bytes
 from .ops.forward import forward_bits
 from .ops.overlay import overlay_scores
-from .parallel.dist import (gather_rows, process_shard, replaced,
-                            shard_indices)
+from .parallel.dist import (check_ranks, gather_rows, process_shard,
+                            replaced, shard_indices, shard_job)
 from .parallel.mesh import scoring_mesh, sharded_forward_bits
 from .spans import span
 from .weighting import calculate_weights, read_weights, write_weights
@@ -596,10 +597,69 @@ def _write_decomposition(ens, root, parent, gate_event=None):
         write_decomposition(ens, root)
 
 
+def _found_dir() -> bool:
+    """Whether Configs.hmmdir holds a decomposition to reuse."""
+    return os.path.isdir(Configs.hmmdir) and any(
+        d.startswith("A_0_") for d in os.listdir(Configs.hmmdir))
+
+
+def _shard_start(shard, n_shards):
+    """A shard's first steps: rank i > 0 writes its stage lines to
+    runtime_breakdown.rank<i>.txt (rank 0's file is the job's); a rank
+    pool's rank 0 (server.py) looks for a decomposition to reuse, for
+    every rank, then starts the other ranks where it must and hands them
+    the job, in span `shards`."""
+    if shard > 0:
+        Configs.runtime_path = os.path.join(
+            Configs.outdir, "runtime_breakdown.rank%d.txt" % shard)
+    sj = shard_job()
+    if sj is None or sj.dispatch is None:
+        return
+    sj.have_dir = _found_dir()
+    with span("shards", ranks=n_shards) as sp:
+        sp.counters.update(sj.start())
+        with span("shards.dispatch"):
+            sj.dispatch()
+    Configs.runtime("Time to dispatch job to %d shard ranks (s): %f"
+                    % (n_shards, sp.seconds))
+
+
+def _ensemble_bytes(ens) -> bytes:
+    """An ensemble as bytes for another rank, which has the backbone."""
+    return pickle.dumps((ens.cores, ens.retained_columns,
+                         ens.nongaps_per_column, ens.molecule,
+                         ens._subsets), protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _ensemble_from(blob: bytes, backbone) -> Ensemble:
+    cores, retained, nongaps, molecule, subsets = pickle.loads(blob)
+    ens = Ensemble(cores=cores, retained_columns=retained,
+                   nongaps_per_column=nongaps, backbone=backbone,
+                   molecule=molecule)
+    ens._subsets = subsets  # type: ignore
+    return ens
+
+
+def _persist(indices, qnames, scores, valid):
+    """The hmmsearch.results.* files of the rounded scores, one a model
+    (the reference's persisted search results)."""
+    with span("persist", models=len(indices)) as sp:
+        for j, idx in enumerate(indices):
+            res = {qnames[q]: (0.0, float(scores[q, j]))
+                   for q in np.flatnonzero(valid[:, j])}
+            write_search_results(Configs.hmmdir, int(idx), res)
+    Configs.runtime("Time to persist hmmsearch results (s): %f"
+                    % sp.seconds)
+
+
 def _alignment_process(device, job):
     shard, n_shards = process_shard()
     mesh = scoring_mesh(device, n_shards)
     device = resolve_device(device)
+    if not Configs.hmmdir:
+        Configs.hmmdir = os.path.join(Configs.outdir, "tree_decomp", "root")
+    if n_shards > 1:
+        _shard_start(shard, n_shards)
     # the cards this run scores on (a server's .done records them)
     Configs.scoring_cards = [str(d) for d in (mesh or [device])]
     molecule = Configs.molecule
@@ -609,8 +669,6 @@ def _alignment_process(device, job):
         molecule = infer_datatype(read_fasta(src, remove_gaps=True))
         Configs.log("Inferred molecule type: {}".format(molecule))
     alphabet = ALPHABETS[molecule]
-    if not Configs.hmmdir:
-        Configs.hmmdir = os.path.join(Configs.outdir, "tree_decomp", "root")
 
     if not (Configs.backbone_path and os.path.exists(Configs.backbone_path)):
         # scenario A/B: split the input into backbone and queries, align
@@ -641,13 +699,21 @@ def _alignment_process(device, job):
     backbone_length = backbone.n_cols
 
     art_thread = None
-    have_dir = os.path.isdir(Configs.hmmdir) and any(
-        d.startswith("A_0_") for d in os.listdir(Configs.hmmdir))
+    # a rank pool's ranks take rank 0's finding, made before any rank ran:
+    # then rank 0 may write the decomposition while the others run
+    sj = shard_job()
+    pooled = sj is not None and sj.have_dir is not None
+    have_dir = sj.have_dir if pooled else _found_dir()
     with span("ensemble") as sp:
         if have_dir:
             Configs.log("Found existing HMM directory: %s" % Configs.hmmdir)
             with span("ensemble.read"):
                 ens = read_ensemble_dir(Configs.hmmdir, backbone, molecule)
+        elif pooled and shard > 0:
+            # a rank pool's rank 0 builds the ensemble (every rank would
+            # build the same one, at once) and sends it
+            with span("ensemble.receive"):
+                ens = _ensemble_from(sj.recv_ensemble(), backbone)
         else:
             if not (Configs.backbone_tree_path
                     and os.path.exists(Configs.backbone_tree_path)):
@@ -670,11 +736,14 @@ def _alignment_process(device, job):
                                  Configs.alignment_upper_bound, molecule,
                                  n_workers=min(Configs.num_cpus,
                                                Configs.max_concurrent_jobs))
-            if Configs.keep_decomposition and n_shards == 1:
+            if pooled:
+                sj.send_ensemble(_ensemble_bytes(ens))
+            if Configs.keep_decomposition and (n_shards == 1 or (
+                    pooled and shard == 0)):
                 # artifact writes overlap the scoring stage (nothing reads
                 # them back in this run); released once the banks are
-                # built. Sharded, the merging process writes them after the
-                # gather, so no shard reads a sibling's directory
+                # built. Sharded otherwise, the merging process writes them
+                # after the gather, so no shard reads a sibling's directory
                 # half-written
                 Configs._art_gate_event = threading.Event()
                 art_thread = threading.Thread(
@@ -684,6 +753,7 @@ def _alignment_process(device, job):
                 art_thread.start()
     Configs.runtime("Time to obtain eHMM ensemble (s): %f" % sp.seconds)
     Configs.log("Ensemble of %d HMMs" % len(ens.cores))
+    check_ranks()
 
     tmp_bb_dir = os.path.join(Configs.outdir, "tree_decomp", "backbone")
     os.makedirs(tmp_bb_dir, exist_ok=True)
@@ -708,6 +778,9 @@ def _alignment_process(device, job):
     # weights: reuse weights.txt, then persisted search results, then
     # score on the device (the reference's resume ladder)
     banks = None
+    # sharded: the owned rows' weights and scores, for the merger to
+    # write weights.txt and the search results as the unsharded run does
+    own_weights = own_scores = None
     weight_path = os.path.join(Configs.outdir, "weights.txt")
     if os.path.exists(weight_path):
         Configs.log("Found existing weights: %s" % weight_path)
@@ -739,19 +812,16 @@ def _alignment_process(device, job):
                     ens, qcodes, device, q_owned=q_owned, mesh=mesh)
             Configs.runtime("Time for all-vs-all Forward scoring (s): %f"
                             % sp.seconds)
+            check_ranks()
             if art_thread is not None:
                 with span("writer.join"):
                     art_thread.join()
                 art_thread = None
-            if Configs.keep_decomposition and n_shards == 1 \
+            if Configs.keep_decomposition and n_shards > 1:
+                own_scores = (scores[q_owned], valid[q_owned])
+            elif Configs.keep_decomposition \
                     and os.path.isdir(Configs.hmmdir):
-                with span("persist", models=len(indices)) as sp:
-                    for j, idx in enumerate(indices):
-                        res = {qnames[q]: (0.0, float(scores[q, j]))
-                               for q in np.flatnonzero(valid[:, j])}
-                        write_search_results(Configs.hmmdir, int(idx), res)
-                Configs.runtime("Time to persist hmmsearch results (s): %f"
-                                % sp.seconds)
+                _persist(indices, qnames, scores, valid)
         with span("weights") as sp:
             # sharded, only the owned rows were gate-evaluated here
             w_rows = np.arange(len(qnames)) if q_owned is None else q_owned
@@ -759,7 +829,9 @@ def _alignment_process(device, job):
                                       indices, ens.sizes(),
                                       [qnames[q] for q in w_rows])
         Configs.runtime("Time to obtain weights (s): %f" % sp.seconds)
-        if Configs.save_weight and n_shards == 1:
+        if Configs.save_weight and n_shards > 1:
+            own_weights = weights
+        elif Configs.save_weight:
             write_weights(weights, weight_path)
 
     ckpt_name = ("checkpoint_alignments.txt.gz" if n_shards == 1 else
@@ -778,20 +850,39 @@ def _alignment_process(device, job):
     if n_shards > 1:
         # every shard's rows, in shard order (= query order, so the merged
         # files are the unsharded run's); one process goes on to merge
+        sj = shard_job()
         with span("gather") as sp:
             gathered = gather_rows(rows, ignored, shard, n_shards,
-                                   os.path.join(Configs.outdir, "shards"))
+                                   os.path.join(Configs.outdir, "shards"),
+                                   (own_weights, own_scores))
+            walls = sj.walls if sj is not None else None
+            if walls:
+                sp.counters.update(rank_wall_max_ms=1e3 * max(walls),
+                                   rank_wall_min_ms=1e3 * min(walls))
+        if walls:
+            Configs.runtime("  shards: rank walls min .. max (s): %f .. %f"
+                            % (min(walls), max(walls)))
         Configs.runtime("Time to gather shard rows (s): %f" % sp.seconds)
         if gathered is None:
             Configs.log("Shard %d/%d: rows staged; merge owned by another "
                         "process" % (shard, n_shards))
             return None
-        rows, ignored = gathered
-        if Configs.keep_decomposition and not have_dir:
+        rows, ignored, extras = gathered
+        if Configs.keep_decomposition and not have_dir and not pooled:
             art_thread = threading.Thread(
                 target=_write_decomposition,
                 args=(ens, Configs.hmmdir, job), daemon=True)
             art_thread.start()
+        if own_weights is not None:
+            # the blocks are contiguous and in shard order: query order
+            merged = {}
+            for w, _ in extras:
+                merged.update(w)
+            write_weights(merged, weight_path)
+        if own_scores is not None:
+            _persist(indices, qnames,
+                     np.concatenate([s for _, (s, _) in extras]),
+                     np.concatenate([v for _, (_, v) in extras]))
 
     back = {v: k for k, v in renamed.items()}
     with span("merge") as sp:

@@ -16,12 +16,24 @@ Counterpart of witch_tpu/server.py, with the same file protocol:
                                 "cards": [str]}; its mtime is a heartbeat
 
 On a host with several cards a server started without a card index
-scores each job over every visible card (the data mesh,
-parallel/mesh.py), unless WITCH_TPU_NO_MESH is set in the server's or
-the job's environment; "cards" lists the cards a job scored on (null
-when it stopped before scoring was set up), and in server.alive the
-cards its jobs score on by default. "device" is the primary card, where
-everything after scoring runs.
+runs each job that gives its backbone alignment (-b) as query shards,
+one rank a card (parallel/dist.py), unless WITCH_TPU_NO_MESH is set in
+the server's or the job's environment (a job that builds its backbone
+runs in the server's process and scores on the data mesh,
+parallel/mesh.py): rank 0 is the server's own process, on the first card, and
+ranks 1..N-1 are resident worker processes, one pinned to each other
+card, started at the first such job and kept for later ones with their
+CUDA context, kernel library, native engine and bank cache (_Ranks).
+Each rank takes 1/N of the host's cores (-t, unless the job gives it)
+and gates and aligns its own block of the queries; rank 0 gathers the
+rows, weights and scores, merges, and writes the outputs of the
+one-card job, byte for byte. A rank that raises or dies fails the job
+(its traceback in "error"), and the next job starts new workers.
+"cards" lists the ranks' cards in rank order (null when the job stopped
+before its scoring was set up), and in server.alive the cards its jobs
+run on by default; "device" is rank 0's card. Rank 0's stage lines go
+to the job's runtime_breakdown.txt, rank i's to
+runtime_breakdown.rank<i>.txt.
 
 Usage:
     python -m witch_tpu_torch serve -d JOBS_DIR [--max-idle S] [--device D]
@@ -36,8 +48,11 @@ remote TPU session alive), and the hot-reload of modules between jobs.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import socket
+import subprocess
 import sys
 import threading
 import time
@@ -45,13 +60,27 @@ import traceback
 
 # submitter variables that stay the submitter's own
 _LOCAL_ENV = ("WITCH_TPU_IN_SERVER", "WITCH_TPU_DAEMON_DIR")
+# rank 0 waits for the other ranks' rows at most this long, plus twice
+# its own pipeline's seconds, past reaching the gather
+GATHER_GRACE_S = 60.0
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_WORKER = ("import sys; sys.path.insert(0, %r); from witch_tpu_torch.server "
+           "import _rank_worker; sys.exit(_rank_worker(sys.argv[1:]))")
 
 
 def _run_job(argv, device, cwd=None, env=None):
     """One CLI job in this process; the environment and working
-    directory are the job's for its duration."""
+    directory are the job's for its duration. Where the caller's device
+    names no card index, two or more cards are visible, WITCH_TPU_NO_MESH
+    is unset and this process is no shard itself (where a run would form
+    the data mesh), a job that gives its backbone alignment (-b) runs as
+    one query shard a card (_Ranks). A job that builds its backbone
+    (scenarios A and B) stays in this process, so that the backbone job
+    runs once, with every core, and scoring forms the mesh."""
     from .cli import init_parser
-    from .config import build_configs
+    from .config import Configs, build_configs
+    from .parallel.dist import process_shard
+    from .parallel.mesh import scoring_mesh
     from .pipeline import main_alignment_process
     here = os.getcwd()
     saved = {}
@@ -63,6 +92,18 @@ def _run_job(argv, device, cwd=None, env=None):
         if cwd:
             os.chdir(cwd)
         build_configs(init_parser(), argv)
+        cards = scoring_mesh(device, process_shard()[1])
+        if cards and Configs.backbone_path \
+                and os.path.exists(Configs.backbone_path):
+            # the workers' environment is the server's, without the job's
+            base = dict(os.environ)
+            for k, v in saved.items():
+                if v is None:
+                    base.pop(k, None)
+                else:
+                    base[k] = v
+            return _RANKS.run([str(c) for c in cards], argv, os.getcwd(),
+                              env, base)
         return main_alignment_process(device)
     finally:
         os.chdir(here)
@@ -71,6 +112,261 @@ def _run_job(argv, device, cwd=None, env=None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+class _Ranks:
+    """The resident query-shard ranks of this process's jobs (the module
+    docstring). Rank i > 0 is a worker process (_rank_worker) pinned to
+    card i and joined to this one by a socket pair; it runs each job's
+    pipeline on its block and sends its rows, weights and scores, or its
+    traceback, to rank 0. A job that fails after it was handed out
+    discards the workers (they may still be busy with it); the next job
+    starts new ones."""
+
+    def __init__(self):
+        self.cards = None       # the ranks' cards, rank order
+        self.procs = []         # worker processes, ranks 1..N-1
+        self.conns = []
+        self.jobs = 0
+        self.lost = 0           # workers discarded since the last start
+        self.busy = False       # a job is out on the workers
+        self._atexit = False
+
+    def run(self, cards, argv, cwd, env, base_env):
+        """The job as len(cards) ranks; returns rank 0's output path."""
+        import torch
+
+        from .cli import init_parser
+        from .config import Configs, build_configs
+        from .parallel import dist
+        from .pipeline import main_alignment_process
+        n = len(cards)
+        self.jobs += 1
+        job_id, job_argv = self.jobs, list(argv)
+        got = {}                # rank: (payload, extra, wall) from workers
+        t0 = [0.0]
+        senders = []
+
+        def dispatch():
+            self.busy = True
+            msg = (job_id, job_argv, cwd, env, job.have_dir)
+            for c in self.conns:
+                c.send(msg)
+
+        def send_ensemble(blob):
+            # beside rank 0's own run: a worker that is still starting
+            # reads it when it gets there
+            msg = ("ensemble", job_id, blob)
+            senders.extend(threading.Thread(target=_send, args=(c, msg),
+                                            daemon=True)
+                           for c in self.conns)
+            for t in senders:
+                t.start()
+
+        def gather(payload, extra):
+            wall = time.perf_counter() - t0[0]
+            self._receive(job_id, got, time.monotonic() + GATHER_GRACE_S
+                          + 2 * wall)
+            for t in senders:
+                t.join()
+            self.busy = False
+            job.walls = [wall] + [got[r][2] for r in range(1, n)]
+            return [(payload, extra)] + [got[r][:2] for r in range(1, n)]
+
+        job = dist.ShardJob(
+            0, n, cards.count(cards[0]), start=lambda: self._start(
+                cards, base_env), dispatch=dispatch,
+            check=lambda: self._receive(job_id, got, None), gather=gather,
+            send_ensemble=send_ensemble)
+        argv, cores = dist.rank_cores(argv, n)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(cores or threads)
+        try:
+            with dist.sharded(job):
+                build_configs(init_parser(), argv)
+                t0[0] = time.perf_counter()
+                out = main_alignment_process(cards[0])
+        except BaseException:
+            if self.busy:
+                self.discard()
+            raise
+        finally:
+            torch.set_num_threads(threads)
+        Configs.scoring_cards = list(cards)
+        return out
+
+    def _start(self, cards, base_env) -> dict:
+        """Workers for ranks 1..N-1 of `cards`, the running ones where
+        they all live; the counters of span `shards`."""
+        if self.cards == cards and all(p.poll() is None for p in self.procs):
+            return {"workers_started": 0, "workers_replaced": 0}
+        self.discard()
+        if cards[0].startswith("cuda"):
+            # built once here, so that the workers only load them
+            from . import _build
+            from .native import _domaindef, _oa  # noqa: F401
+            _build.lib()
+        from multiprocessing.connection import Connection
+        if not self._atexit:
+            atexit.register(self.close)
+            self._atexit = True
+        from .parallel.dist import pin_card
+        for i in range(1, len(cards)):
+            env = dict(base_env)
+            env.pop("WITCH_TPU_SHARD", None)
+            device = cards[i]
+            if device.startswith("cuda"):
+                pin_card(env, int(device.split(":")[1]))
+                device = "cuda:0"
+            a, b = socket.socketpair()
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", _WORKER % _ROOT, str(b.fileno()),
+                 str(i), str(len(cards)), str(cards.count(cards[i])),
+                 device], env=env, pass_fds=(b.fileno(),),
+                stdin=subprocess.DEVNULL))
+            b.close()
+            self.conns.append(Connection(a.detach()))
+        self.cards = list(cards)
+        replaced, self.lost = min(self.lost, len(cards) - 1), 0
+        return {"workers_started": len(cards) - 1,
+                "workers_replaced": replaced}
+
+    def _receive(self, job_id, got, deadline):
+        """Read what the workers sent for job job_id into `got`: at once
+        (deadline None), or until every rank's rows are in. Raises when a
+        rank failed, died or, past the deadline, sent nothing."""
+        from multiprocessing.connection import wait
+        while True:
+            pending = {c: r for r, c in enumerate(self.conns, 1)
+                       if r not in got}
+            if not pending:
+                return
+            for c in wait(list(pending), 0 if deadline is None else 1.0):
+                r = pending[c]
+                try:
+                    kind, jid, *rest = c.recv()
+                except (EOFError, OSError):
+                    p = self.procs[r - 1]
+                    try:
+                        p.wait(timeout=5)
+                    except subprocess.TimeoutExpired:
+                        pass
+                    raise RuntimeError(
+                        "shard rank %d (pid %d, %s) died (exit code %s)"
+                        % (r, p.pid, self.cards[r], p.poll())) from None
+                if jid != job_id:
+                    continue        # the end of an earlier, failed job
+                if kind == "error":
+                    raise RuntimeError("shard rank %d (%s) failed:\n%s"
+                                       % (r, self.cards[r], rest[0]))
+                got[r] = tuple(rest)
+            if deadline is None:
+                return
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "shard ranks %s sent no rows within %.0f s past rank 0's "
+                    "gather" % (sorted(pending.values()), GATHER_GRACE_S))
+
+    def discard(self):
+        """Kill the workers (the next job starts new ones)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for c in self.conns:
+            c.close()
+        self.lost += len(self.procs)
+        self.procs, self.conns, self.cards = [], [], None
+        self.busy = False
+
+    def close(self):
+        """Stop the workers: each ends after its job, or is killed after
+        10 s."""
+        for c in self.conns:
+            try:
+                c.send(None)
+            except OSError:
+                pass
+        t_end = time.monotonic() + 10.0
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(0.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        self.discard()
+        self.lost = 0
+
+    def pids(self):
+        return [p.pid for p in self.procs]
+
+
+_RANKS = _Ranks()
+
+
+def _send(conn, msg):
+    """conn.send(msg) from a side thread: a rank that died meanwhile is
+    reported by _Ranks._receive."""
+    try:
+        conn.send(msg)
+    except OSError:
+        pass
+
+
+def _rank_worker(args) -> int:
+    """A resident rank's process (_Ranks): FD RANK N SHARING DEVICE. It
+    takes its card and warms the kernel library and native engine, then
+    runs each job it is sent until rank 0 sends None or goes away."""
+    from multiprocessing.connection import Connection
+
+    import torch
+
+    from .parallel import dist
+    conn = Connection(int(args[0]))
+    rank, n, sharing = int(args[1]), int(args[2]), int(args[3])
+    device = dist.bootstrap(rank, n, args[4], sharing=sharing)
+    if device.startswith("cuda"):
+        from . import _build
+        _build.lib()
+        torch.zeros(1, device=device)       # the CUDA context, now
+    from .native import _domaindef, _oa  # noqa: F401 - the native engine
+    while True:
+        try:
+            msg = conn.recv()
+        except EOFError:
+            return 0
+        if msg is None:
+            return 0
+        job_id, argv, cwd, env, have_dir = msg
+        sent = []
+
+        def gather(payload, extra):
+            conn.send(("rows", job_id, payload, extra,
+                       time.perf_counter() - t0))
+            sent.append(True)
+
+        def recv_ensemble():
+            msg = conn.recv()
+            if not (msg and msg[0] == "ensemble" and msg[1] == job_id):
+                raise RuntimeError("shard rank %d: job %d's ensemble did not "
+                                   "come (%r)" % (rank, job_id, msg and msg[0]))
+            return msg[2]
+
+        argv, cores = dist.rank_cores(argv, n)
+        if cores:
+            torch.set_num_threads(cores)
+        try:
+            with dist.sharded(dist.ShardJob(
+                    rank, n, sharing, gather=gather, have_dir=have_dir,
+                    recv_ensemble=recv_ensemble)):
+                t0 = time.perf_counter()
+                _run_job(argv, device, cwd, env)
+        except (Exception, SystemExit):
+            tb = traceback.format_exc()
+            if not sent:
+                conn.send(("error", job_id, tb))
+            else:
+                sys.stderr.write("shard rank %d, after its rows:\n%s"
+                                 % (rank, tb))
 
 
 def _run_bench_job(spec, device):
@@ -118,8 +414,8 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
     """Run the jobs that appear in jobs_dir, one at a time, until no job
     came for max_idle_s seconds (0: forever). The device is resolved once
     (CUDA unless the caller passes another); each job gets the caller's
-    own `device`, so that without a card index its scoring forms the
-    data mesh."""
+    own `device`, so that without a card index it runs as one rank a
+    card (_Ranks); the workers stop with the server."""
     from . import _build
     from .config import Configs
     from .device import resolve_device
@@ -188,6 +484,7 @@ def serve(jobs_dir: str, poll_s: float = 0.5, max_idle_s: float = 0.0,
             last_work = time.time()
     finally:
         stop.set()
+        _RANKS.close()
         try:
             os.remove(alive)
         except OSError:

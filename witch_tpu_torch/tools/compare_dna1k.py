@@ -4,6 +4,7 @@ outputs byte for byte.
 
     python3 witch_tpu_torch/tools/compare_dna1k.py --tree A --tree B [--out DIR]
         [--full-search N] [--env I:KEY=VALUE ...] [--queries Q]
+        [--serve]
 
 The data is scripts/make_scale_dataset.py --n 1000 --queries 1000 --seed
 20260820 (1,000 backbone sequences and tree, 1,000 query fragments);
@@ -15,7 +16,13 @@ environment of the I-th --tree's runs (from 0): `--tree . --tree . --env
 1:WITCH_TPU_SPEC_OA=0` compares one checkout with the speculative OA
 start on and off; on a host of four cards `--tree . --tree . --tree .
 --env 0:WITCH_TPU_NO_MESH=1 --env 1:CUDA_VISIBLE_DEVICES=0,1` scores on
-1, 2 and 4 cards (the data mesh, parallel/mesh.py). The trees run in
+1, 2 and 4 cards (the data mesh, parallel/mesh.py). With --serve each
+run is one job through serve's job path (server._run_job, no card
+index: on a host of several cards one query-shard rank a card) with
+--save-weight 1, and weights.txt, ignored_queries.fasta and the
+decomposition are compared too: on four cards `--serve --tree . --tree
+. --env 0:WITCH_TPU_NO_MESH=1` holds four ranks against one card. The
+trees run in
 turns A B B A (A B C C B A for three), each in its own process, so the
 timings come from one call. Per
 run it prints one JSON line: the tree, the wall time, and the
@@ -26,7 +33,8 @@ posterior+OA or its speculative join, with the OA kernel's ms and
 launches), the per-query alignment stage and the total; then one JSON line comparing
 every run's aligned.fasta, aligned.masked.fasta and persisted
 hmmsearch.results.* files with the first run's, naming any row or file
-that differs. In the full-search mode each run records, through the
+that differs (with --serve, also weights.txt, ignored_queries.fasta and
+the decomposition's model and input files). In the full-search mode each run records, through the
 pipeline's own prefilter, the three-way decision of every pair and
 whether its rows sit within 1e-3 of RT1, RT2 or RT3 (NEAR), and every
 result entry that differs between runs is listed with its pair's
@@ -98,6 +106,14 @@ pl._full_search_gate, fd.prefilter_grid = gate, grid
 witch_runner(argv)
 np.savez(out, **seen)
 """
+# One job of a tree through serve's job path (argv: tree, the CLI
+# arguments).
+SERVE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from witch_tpu_torch import server
+server._run_job(sys.argv[2:], None)
+"""
 
 
 def differing_entries(outs, names, diff_files):
@@ -153,6 +169,7 @@ def main():
     ap.add_argument("--full-search", type=int, default=0)
     ap.add_argument("--env", action="append", default=[])
     ap.add_argument("--queries", type=int, default=1000)
+    ap.add_argument("--serve", action="store_true")
     a = ap.parse_args()
     a.out = os.path.abspath(a.out)       # the runs' working directories differ
     trees = [os.path.abspath(t) for t in a.tree]
@@ -178,6 +195,9 @@ def main():
         with open(queries, "w") as f:
             f.write("".join(">" + r for r in rows))
         extra = ["--full-search-results", "1"]
+    if a.serve:
+        extra.append("--save-weight")
+        extra.append("1")
     card = smi()
     outs = []
     for i, ti in enumerate(turns):
@@ -190,6 +210,8 @@ def main():
                "-q", queries, "-d", outdir, "-o", "aligned.fasta"] + extra
         run = ["-c", RUN, t, os.path.join(outdir, "prefilter.npz")] \
             if a.full_search else ["-m", "witch_tpu_torch"]
+        if a.serve:
+            run = ["-c", SERVE, t]
         r = subprocess.run([sys.executable] + run + cli, cwd=t, env=env,
                            capture_output=True, text=True, timeout=1800)
         wall = time.time() - t0
@@ -201,16 +223,26 @@ def main():
             if "device Forward" in ln or "Total runtime" in ln
             or "all-vs-all Forward" in ln or "device gate" in ln
             or "native domaindef" in ln or "posterior+OA" in ln
-            or "overlay" in ln or "per-query alignment" in ln]
+            or "overlay" in ln or "per-query alignment" in ln
+            or "shard" in ln]
         print(json.dumps(dict(tree=t, env=envs[ti], run=i, wall_s=wall,
                               lines=lines, card=card)), flush=True)
         outs.append(outdir)
     cmp = {}
-    for f in ("aligned.fasta", "aligned.masked.fasta"):
-        ref = open(os.path.join(outs[0], f), "rb").read()
-        same = [open(os.path.join(o, f), "rb").read() == ref for o in outs]
+    files = ["aligned.fasta", "aligned.masked.fasta"]
+    if a.serve:
+        files += ["weights.txt", "ignored_queries.fasta"] + sorted(
+            os.path.relpath(p, outs[0]) for p in glob.glob(os.path.join(
+                outs[0], "tree_decomp", "root", "*", "hmmbuild.*")))
+
+    def read(path):
+        return open(path, "rb").read() if os.path.exists(path) else None
+
+    for f in files:
+        ref = read(os.path.join(outs[0], f))
+        same = [read(os.path.join(o, f)) == ref for o in outs]
         diff = []
-        if not all(same):
+        if not all(same) and f.endswith(".fasta") and ref is not None:
             r0 = read_rows(os.path.join(outs[0], f))
             for o in outs[1:]:
                 ro = read_rows(os.path.join(o, f))

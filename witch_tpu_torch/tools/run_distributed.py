@@ -5,20 +5,24 @@ torch.distributed gloo group on this host.
         [--compare FILE] [--timeout S] -- <witch_tpu_torch flags>
 
 The parent picks a free local port and starts N children at once. Child i
-joins the group (gloo, tcp://127.0.0.1:PORT, rank i of N), takes the card
-i mod the visible cards with --device cuda (it sees only that card, so
-every thread of it launches there; named by its index, so that a rank
-forms no data mesh: parallel/mesh.py) and 1/N of the host's cores (-t,
-and as many PyTorch CPU threads, unless the flags give -t), then runs
-pipeline.main_alignment_process in process on the given flags. Each child
-gates and aligns its own block of queries; rank 0 gathers every rank's
-rows and merges (parallel/dist.py). All ranks write into the one outdir.
+starts through the ranks' bootstrap (parallel/dist.py:bootstrap, which
+the server's resident ranks use too): it joins the group (gloo,
+tcp://127.0.0.1:PORT, rank i of N), takes the card i mod the visible
+cards with --device cuda (it sees only that card, so every thread of it
+launches there; named by its index, so that a rank forms no data mesh:
+parallel/mesh.py) and counts the ranks on its card; it takes 1/N of the
+host's cores (-t, and as many PyTorch CPU threads, unless the flags give
+-t), then runs pipeline.main_alignment_process in process on the given
+flags. Each child gates and aligns its own block of queries; rank 0
+gathers every rank's rows, weights and scores and merges
+(parallel/dist.py). All ranks write into the one outdir.
 
 Each child prints one JSON line: its rank, wall seconds (the pipeline
 call), whether it merged, its card (CUDA_VISIBLE_DEVICES:index), its
 seconds in the gather, its own kernel launches (the change in
 _build.LAUNCHES over the run) and its own runtime_breakdown.txt lines
-(the shared file interleaves the ranks'). The parent relays them,
+(rank 0's file is the job's, rank i's runtime_breakdown.rank<i>.txt).
+The parent relays them,
 checks that exactly one rank merged and, with --compare FILE, that the
 merged aligned.masked.fasta equals FILE byte for byte, then prints one
 JSON line of its own and exits nonzero if a rank failed or a check did.
@@ -40,31 +44,27 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
 
 
 def child(rank: int, n: int, port: int, device: str, argv) -> int:
-    sys.path.insert(0, ROOT)
     import torch
     import torch.distributed as dist
 
-    if device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("rank %d: --device cuda, and CUDA is not "
-                               "available" % rank)
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-        # the rank's one card, by index: a rank scores on it alone
-        device = "cuda:%d" % torch.cuda.current_device()
-    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
-                            rank=rank, world_size=n)
+    from witch_tpu_torch.parallel.dist import bootstrap, rank_cores
+    # the rank's one card, by index (a rank scores on it alone), and the
+    # group
+    device = bootstrap(rank, n, device,
+                       init_method="tcp://127.0.0.1:%d" % port)
     try:
         import witch_tpu_torch.pipeline as pl
         from witch_tpu_torch import _build
         from witch_tpu_torch.cli import init_parser
         from witch_tpu_torch.config import Configs, build_configs
 
-        if not {"-t", "--num-cpus"} & set(argv):
-            cores = max(1, (os.cpu_count() or 1) // n)
-            argv = list(argv) + ["-t", str(cores)]
+        argv, cores = rank_cores(argv, n)
+        if cores:
             torch.set_num_threads(cores)
         gather = pl.gather_rows
         t_gather = []
@@ -77,8 +77,7 @@ def child(rank: int, n: int, port: int, device: str, argv) -> int:
                 t_gather.append(time.time() - t0)
 
         pl.gather_rows = timed_gather
-        # this rank's own runtime_breakdown.txt lines (the file in the
-        # shared outdir takes every rank's)
+        # this rank's own runtime_breakdown lines, for its JSON line
         own = []
         write = Configs.runtime
 
@@ -120,11 +119,12 @@ def card_env(rank: int, device: str) -> dict:
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")   # every rank on this host
     if device == "cuda":
         import torch
+
+        from witch_tpu_torch.parallel.dist import pin_card
         visible = env.get("CUDA_VISIBLE_DEVICES")
-        cards = (visible.split(",") if visible else
-                 [str(i) for i in range(torch.cuda.device_count())])
-        if len(cards) > 1:
-            env["CUDA_VISIBLE_DEVICES"] = cards[rank % len(cards)]
+        n = len(visible.split(",")) if visible else torch.cuda.device_count()
+        if n > 1:
+            pin_card(env, rank % n)
     return env
 
 
