@@ -62,7 +62,8 @@ Phases:
   4. seeded DNA scenario D, 1,000 backbone + 1,000 queries
      (scripts/make_scale_dataset.py), through the CLI: every query placed
      or ignored, backbone rows intact, 200 sampled OA pairs equal native
-     above the guard, all three kernels launched, the gate line (null2's
+     above the guard, forward, null2, oa, overlay and effn launched, the
+     gate line (null2's
      device time, kernel ms and launches), the speculative join and its
      selection-drift count; the query rows against the JAX
      package's (tests/golden/ref_dna1k.queries.masked.fasta.gz): the count
@@ -74,7 +75,14 @@ Phases:
      the card deciding 95% of the pairs or more, each launch's kernel ms
      beside its serial-chain bound, and the native engine's wall on the
      same pairs, then a model one stripe too wide falling back, counted;
-     the overlay's entry in the kernels line; after
+     the overlay's entry in the kernels line; (4h) the entropy-weighting
+     kernel (ops/effn.py, csrc/effn.cu) on the counts of 4's ensemble
+     (285 models): one launch, every effn bit for bit the plain
+     version's on the same card tensors and the host's entropy_weight,
+     the smallest margins within EFFN_MINF_TOL of the plain version's and
+     none below the guard, the kernel's ms beside the plain version's,
+     the host bisection's and its f64 bound from the run's column-steps;
+     its entry in the kernels line; after
      4d and 4e (item 2), (4m) the data mesh
      (witch_tpu_torch/parallel/mesh.py) over every visible card, on a
      one-card host over cuda:0 twice (said on its own line): dna1k's two
@@ -268,6 +276,17 @@ FP32_DEP_CYCLES = 4
 OPS_PER_CELL = {"forward": 20, "flank": 40, "null2": 45, "oa": 58,
                 "pairhmm": 17}
 F64_OPS_PER_CELL = {"oa": 14}
+# The entropy-weighting kernel (phase 4h) is bound by f64 operations a
+# column a bisection step, counted from csrc/effn.cu's column_terms with
+# each libm call at a fixed cost: CUDA's f64 lgamma ~40 (a polynomial or
+# Stirling series and a log), exp ~20, log2 ~25, a division ~10 (a
+# reciprocal and its Newton steps). DNA (K 4, NC 4): 20 lgamma, 4 exp,
+# 4 log2, 32 divisions and 160 others, 1,460 a column-step.
+EFFN_COSTS = {"lgamma": 40, "exp": 20, "log2": 25, "div": 10}
+# the largest difference, in bits, allowed between the kernel's smallest
+# |f| of a model and the plain version's on the same card tensors (both
+# f64, another summation order)
+EFFN_MINF_TOL = 1e-11
 # bytes of stored scratch per state-row, at the kernel's padded width:
 # null2 16 (Forward M and I written and read back), oa 17 (Backward bM and
 # bI written and read back, the pointer byte written)
@@ -299,6 +318,31 @@ def bound_ms(name, cells, nbytes):
              + f64 / F64_OPS_PER_S) * cells * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def effn_ops_per_column(K, NC):
+    """f64 operations of one column's relative-entropy terms (EFFN_COSTS):
+    NC (K + 1) lgamma, NC exp, K log2, 2 NC K divisions, and the rest:
+    the scaling 2K, the components' sums NC (3K + 4), the weights 2 NC,
+    the posterior mean 4 NC K, the terms 4K."""
+    c = EFFN_COSTS
+    return (NC * (K + 1) * c["lgamma"] + NC * c["exp"] + K * c["log2"]
+            + 2 * NC * K * c["div"] + 2 * K + NC * (3 * K + 4) + 2 * NC
+            + 4 * NC * K + 4 * K)
+
+
+def effn_steps(effn, nseq):
+    """The bisection's f evaluations a model, from its result: 1 where
+    the target was met at full counts (effn == nseq), else the full-count
+    test and the midpoints until hi - lo < 0.01 (an exact f == 0, which
+    would stop sooner, is not seen)."""
+    if effn == nseq:
+        return 1
+    width, steps = float(nseq), 2
+    while not width < 0.01:
+        width *= 0.5
+        steps += 1
+    return steps
 
 
 def table_bytes(bt):
@@ -501,6 +545,7 @@ class Recorder:
     def __init__(self):
         import numpy as np
         import witch_tpu_torch.aligner as al
+        import witch_tpu_torch.ensemble as en
         import witch_tpu_torch.hmm.flank_device as fd
         import witch_tpu_torch.hmm.gate_device as gd
         import witch_tpu_torch.pipeline as pl
@@ -508,7 +553,7 @@ class Recorder:
         self.gate, self.null2, self.oa = [], [], []
         self.full, self.counts, self.dist = [], [], []
         self.grid, self.fwd, self.fwd_bits, self.dgate = [], [], [], []
-        self.overlay = []
+        self.overlay, self.effn = [], []
         orig_gate, orig_null2, orig_oa = (pl.evaluate_gate_device,
                                           gd.null2_envelopes, al.oa_columns)
         orig_full, orig_counts, orig_dist = (
@@ -517,6 +562,13 @@ class Recorder:
         orig_fwd = pl.forward_bits
         orig_dgate = pl._device_gate
         orig_overlay = pl.overlay_scores
+        orig_effn = en.effn_all
+
+        def effn(counts, molecule, device):
+            self.effn.append((list(counts), molecule))
+            return orig_effn(counts, molecule, device)
+
+        en.effn_all = effn
 
         def overlay(jobs, device, kc, nthreads, parent):
             self.overlay.append((list(jobs), kc))
@@ -582,7 +634,7 @@ class Recorder:
     def clear(self):
         for x in (self.gate, self.null2, self.oa, self.full, self.counts,
                   self.dist, self.grid, self.fwd, self.fwd_bits, self.dgate,
-                  self.overlay):
+                  self.overlay, self.effn):
             x.clear()
 
 
@@ -1176,9 +1228,9 @@ def phase_dna(tmp, rec):
     check(not bad, "dna1k: %d/%d backbone rows equal the input"
           % (len(bb) - len(bad), len(bb)))
     check(all(launches[k] > 0 for k in ("forward", "null2", "oa",
-                                         "overlay")),
-          "dna1k: forward, null2, oa and overlay launched on the main path "
-          "%s" % launches)
+                                         "overlay", "effn")),
+          "dna1k: forward, null2, oa, overlay and effn launched on the main "
+          "path %s" % launches)
     banks_t, bank_row, pairs, Ldmax = rec.oa[-1]
     v = validate_oa(REC_ALIGNER[0], pairs, Ldmax, sample=200, seed=1)
     check(v["above_guard"] == 0,
@@ -1312,6 +1364,76 @@ def phase_overlay(rec, dev, result):
                              card_s=t_card, native_s=t_native,
                              counters=cnt)
     say(json.dumps({"overlay": result["overlay"]}))
+
+
+def phase_effn(rec, dev, result):
+    """4h: the entropy-weighting kernel on the counts phase 4's ensemble
+    handed to ops/effn.py:effn_all (dna1k's 285 models): one launch; every
+    effn bit for bit the plain version's on the same card tensors and the
+    host's (entropy_weight); the smallest margins within EFFN_MINF_TOL of
+    the plain version's, none below the guard; the kernel's ms beside the
+    plain version's, the host bisection's and its f64 bound."""
+    import numpy as np
+    import torch
+    from witch_tpu_torch import _build
+    from witch_tpu_torch.hmm.build import hmm_effn
+    from witch_tpu_torch.ops import effn as F
+
+    say("== phase 4h: entropy-weighting kernel on dna1k's models")
+    check(rec.effn, "dna1k: the pipeline ran the ensemble's entropy "
+          "weighting")
+    counts, molecule = rec.effn[-1]
+    args = F.effn_args(counts, molecule, dev)
+    _build.LAUNCHES["effn"] = 0
+    k0 = _build.KERNEL_MS["effn"]
+    got, minf = F.effn_card(*args)
+    ms = _build.KERNEL_MS["effn"] - k0
+    check(_build.LAUNCHES["effn"] == 1,
+          "4h: one launch for %d models" % len(counts))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref, minf_ref = F.effn_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    host = [hmm_effn(c, molecule) for c in counts]
+    host_ms = (time.time() - t0) * 1e3
+    got, minf = got.cpu().tolist(), minf.cpu().numpy()
+    ref, minf_ref = ref.cpu().tolist(), minf_ref.cpu().numpy()
+    differ = sum(a != b for a, b in zip(got, ref))
+    differ_host = sum(a != b for a, b in zip(got, host))
+    check(differ == 0 and differ_host == 0,
+          "4h: %d effn bit for bit the plain version's and the host's (%d, "
+          "%d differ)" % (len(got), differ, differ_host))
+    dminf = float(np.max(np.abs(minf - minf_ref)))
+    check(dminf <= EFFN_MINF_TOL and float(minf.min()) >= F.EFFN_GUARD,
+          "4h: smallest |f| within %.3g bits of the plain version's (%.3g), "
+          "none below the guard (smallest %.3g)"
+          % (EFFN_MINF_TOL, dminf, float(minf.min())))
+    t_ms = cuda_ms(lambda: F.effn_card(*args), 5)
+    M = np.diff(args[1].cpu().numpy())
+    nseq = [c.nseq for c in counts]
+    steps = np.array([effn_steps(e, n) for e, n in zip(got, nseq)])
+    col_steps = float((M * steps).sum())
+    K, NC = counts[0].ecounts.shape[1], args[4].shape[0]
+    ops = effn_ops_per_column(K, NC)
+    t_ops = col_steps * ops / F64_OPS_PER_S * 1e3
+    t_bytes = col_steps * K * 8 / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+        t_bytes, "bytes")
+    say("  %d models, %d columns, %d evaluations, %d column-steps x %d f64 "
+        "operations: bound %.4f ms (%s); kernel %.3f ms first, %.3f ms "
+        "warm; plain %.1f ms on the card; host bisection %.1f ms"
+        % (len(counts), int(M.sum()), int(steps.sum()), col_steps, ops,
+           b_ms, b_by, ms, t_ms, plain_ms, host_ms))
+    result["effn"] = dict(models=len(counts), columns=int(M.sum()),
+                          evaluations=int(steps.sum()),
+                          column_steps=col_steps, ops_per_column=ops,
+                          ms=t_ms, ms_first=ms, plain_ms=plain_ms,
+                          host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+                          differ=differ + differ_host, max_minf_diff=dminf,
+                          min_margin=float(minf.min()))
+    say(json.dumps({"effn": result["effn"]}))
 
 
 def mesh_cards():
@@ -2791,6 +2913,7 @@ def main():
         paths["old_witch"] = timed(phase_old_witch, tmp, rec)
         paths["dna1k"] = timed(phase_dna, tmp, rec)
         timed(phase_overlay, rec, dev, result)
+        timed(phase_effn, rec, dev, result)
         timed(phase_forward_path, list(rec.fwd), dev, result, "4d_dna1k",
               100)
         timed(phase_oa_path, rec, dev, result, "4e: oa kernel on dna1k's "
@@ -2916,6 +3039,16 @@ def main():
         differ=r["differ"], ms=r["ms"], plain_ms=r["native_s"] * 1e3,
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         launch=r["launch"], pairs=r["pairs"]))
+    # the entropy weighting (4h): bound by its f64 operations; its plain
+    # time is the plain version's on the same card tensors, its error the
+    # models whose effn differs from the plain version's or the host's
+    r = result["effn"]
+    kernels.append(dict(
+        name="effn", route="cuda", source="witch_tpu_torch/csrc/effn.cu",
+        replaces="none (witch_tpu/hmm/build.py:entropy_weight host NumPy)",
+        launches=paths["dna1k"]["effn"],
+        launches_by_path={p: paths[p].get("effn", 0) for p in paths},
+        library_ms=None, **r))
     say("chip_smoke: all phases passed in %.1f s" % (time.time() - t_start))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())

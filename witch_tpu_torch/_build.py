@@ -22,7 +22,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("forward.cu", "null2.cu", "oa.cu", "flank.cu", "pairhmm.cu",
-           "cluster.cu", "overlay.cu")
+           "cluster.cu", "overlay.cu", "effn.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "witch_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -35,13 +35,13 @@ SMEM_ROWS_MAX = 232448 - 1024
 # Kernel launches per wrapper since the last reset (plain integers: the
 # wrappers add one where they launch their kernel, and nowhere else).
 LAUNCHES = {"forward": 0, "null2": 0, "oa": 0, "flank": 0, "pairhmm": 0,
-            "overlay": 0}
+            "overlay": 0, "effn": 0}
 # CUDA-event milliseconds of each kernel's launches since the last reset
 # (ops/forward.py adds a launch's at its collect; ops/null2.py, ops/oa.py,
-# ops/flank.py, ops/pairhmm.py and ops/overlay.py add each call's
-# launches, from the first to the last, once the last has finished)
+# ops/flank.py, ops/pairhmm.py, ops/overlay.py and ops/effn.py add each
+# call's launches, from the first to the last, once the last has finished)
 KERNEL_MS = {"forward": 0.0, "null2": 0.0, "oa": 0.0, "flank": 0.0,
-             "pairhmm": 0.0, "overlay": 0.0}
+             "pairhmm": 0.0, "overlay": 0.0, "effn": 0.0}
 
 _lock = threading.Lock()
 _lib = None
@@ -139,6 +139,7 @@ def lib():
             so.witch_cluster_probe.argtypes = [I] * 4 + [P] * 3
             so.witch_cluster_probe_active.argtypes = [I]
             so.witch_overlay.argtypes = [P] * 18 + [I] * 4 + [P]
+            so.witch_effn.argtypes = [P] * 8 + [I] * 3 + [P]
             for fn in (so.witch_cluster_probe, so.witch_cluster_probe_active,
                        so.witch_forward_nats, so.witch_null2, so.witch_oa,
                        so.witch_oa_warp, so.witch_oa_cluster,
@@ -147,7 +148,8 @@ def lib():
                        so.witch_flank_cluster_active,
                        so.witch_null2_ctas_per_sm, so.witch_pairhmm,
                        so.witch_pairhmm_reg, so.witch_pairhmm_wide,
-                       so.witch_pairhmm_wide_ctas_per_sm, so.witch_overlay):
+                       so.witch_pairhmm_wide_ctas_per_sm, so.witch_overlay,
+                       so.witch_effn):
                 fn.restype = I
             _lib = so
         return _lib

@@ -21,8 +21,10 @@ import numpy as np
 from .core.alignment import PackedAlignment, subset_counts
 from .core.alphabet import ALPHABETS
 from .core.tree import Tree
-from .hmm.build import CoreHMM, build_hmm, quantize_like_text
+from .hmm.build import (CoreHMM, hmm_counts, hmm_from_counts,
+                        quantize_like_text)
 from .io.hmmer_text import read_hmm, write_hmm
+from .ops.effn import effn_all
 from .spans import current, span
 
 
@@ -51,12 +53,18 @@ def decompose_tree_file(tree_path: str, max_size: int,
     return tree.decompose(max_size, min_size, hierarchical=True)
 
 
-def _build_one(args, parent=None):
+def _counts_one(args, parent=None):
     i, codes_bytes, shape, molecule, name = args
-    with span("ensemble.model", parent=parent, sequences=shape[0]):
+    with span("ensemble.counts", parent=parent, sequences=shape[0]):
         codes = np.frombuffer(codes_bytes, dtype=np.uint8).reshape(shape)
-        alphabet = ALPHABETS[molecule]
-        core = build_hmm(codes, alphabet, molecule, name=name)
+        return hmm_counts(codes, ALPHABETS[molecule])
+
+
+def _finish_one(args, counts, effn, parent=None):
+    i, _, shape, molecule, name = args
+    with span("ensemble.model", parent=parent, sequences=shape[0]):
+        core = hmm_from_counts(counts, effn, ALPHABETS[molecule], molecule,
+                               name=name)
         return i, quantize_like_text(core)
 
 
@@ -64,11 +72,15 @@ def build_ensemble(backbone: PackedAlignment, tree_path: str,
                    alignment_size: int = 10,
                    upper_bound: Optional[int] = None,
                    molecule: str = "dna",
-                   n_workers: int = 1) -> Ensemble:
-    """The eHMM of `backbone` on the decomposition of its tree: spans
-    ensemble.decompose (the tree's subsets and their columns) and
-    ensemble.model (a model's build, in a pool worker where n_workers >
-    1), children of the caller's open span."""
+                   n_workers: int = 1, device=None) -> Ensemble:
+    """The eHMM of `backbone` on the decomposition of its tree, each
+    model's build split at its entropy weighting. Spans, children of the
+    caller's open span: ensemble.decompose (the tree's subsets and their
+    columns), ensemble.counts (a model's first half, hmm_counts),
+    ensemble.effn (every model's bisection at once on `device`: one
+    kernel launch on a CUDA device, the plain version elsewhere;
+    ops/effn.py) and ensemble.model (a model's second half,
+    hmm_from_counts); the halves run in a pool where n_workers > 1."""
     cores: Dict[int, CoreHMM] = {}
     retained: Dict[int, np.ndarray] = {}
     nongaps: Dict[int, np.ndarray] = {}
@@ -85,18 +97,24 @@ def build_ensemble(backbone: PackedAlignment, tree_path: str,
             jobs.append((i, sub_codes.tobytes(), sub_codes.shape, molecule,
                          "A_0_%d" % i))
         sp.counters["models"] = len(jobs)
-    if n_workers > 1 and len(jobs) > 4:
-        # threads, not processes: the numpy build releases the GIL in
-        # part, and fork() after JAX initialization risks deadlocks
-        parent = current()
-        with ThreadPoolExecutor(n_workers) as pool:
-            for i, core in pool.map(_build_one, jobs,
-                                    [parent] * len(jobs)):
-                cores[i] = core
-    else:
-        for job in jobs:
-            i, core = _build_one(job)
+    parent = current()
+    # threads, not processes: the numpy build releases the GIL in part,
+    # and fork() after JAX initialization risks deadlocks
+    pool = ThreadPoolExecutor(n_workers) \
+        if n_workers > 1 and len(jobs) > 4 else None
+    run = pool.map if pool is not None else map
+    try:
+        counts = list(run(_counts_one, jobs, [parent] * len(jobs)))
+        with span("ensemble.effn", kernels="effn", models=len(jobs)) as sp:
+            effn, redo = effn_all(counts, molecule, device or "cpu")
+            sp.counters["device_models"] = len(jobs) - redo
+            sp.counters["host_redo"] = redo
+        for i, core in run(_finish_one, jobs, counts, effn,
+                           [parent] * len(jobs)):
             cores[i] = core
+    finally:
+        if pool is not None:
+            pool.shutdown()
     # subset row names needed for artifact writing
     ens = Ensemble(cores=cores, retained_columns=retained,
                    nongaps_per_column=nongaps, backbone=backbone,

@@ -266,33 +266,53 @@ def entropy_weight(ecounts: np.ndarray, tcounts: np.ndarray, nseq: int,
     return 0.5 * (lo + hi)
 
 
-def build_hmm(codes: np.ndarray, alphabet: Alphabet, molecule: str,
-              ere: float = 0.59, esigma: float = 45.0,
-              fragthresh: float = 0.5, name: str = "",
-              map_to_columns: Optional[np.ndarray] = None,
-              use_eent: bool = True) -> CoreHMM:
-    """Build a core profile HMM from an aligned code matrix [n, M].
+@dataclasses.dataclass
+class Counts:
+    """A model's build up to the entropy weighting (hmm_counts): its
+    weighted counts, its sequence count and its relative-entropy target
+    (None: no entropy weighting)."""
+    ecounts: np.ndarray      # [M+1, K]
+    tcounts: np.ndarray      # [M+1, 7]
+    nseq: int
+    etarget: Optional[float]
 
-    The matrix must already be free of all-gap columns (the reference
-    guarantees this via delete_all_gaps before hmmbuild).
-    """
+
+def hmm_counts(codes: np.ndarray, alphabet: Alphabet, ere: float = 0.59,
+               esigma: float = 45.0, fragthresh: float = 0.5,
+               use_eent: bool = True) -> Counts:
+    """build_hmm's first half: PB weights, weighted counts, the entropy
+    target."""
     n, M = codes.shape
-    K = alphabet.K
-    eprior = get_emission_prior(molecule)
-    tprior = get_transition_prior(molecule)
-
-    weights = pb_weights_fast(codes, K)
+    weights = pb_weights_fast(codes, alphabet.K)
     ecounts, tcounts = collect_counts_fast(codes, alphabet, weights,
                                            fragthresh)
-    bg = get_background(molecule)
-    effn = float(n)
-    if use_eent:
-        etarget = entropy_target(M, ere, esigma)
-        effn = entropy_weight(ecounts, tcounts, n, etarget, eprior, K,
-                              bg=bg)
-        scale = effn / n
+    etarget = entropy_target(M, ere, esigma) if use_eent else None
+    return Counts(ecounts, tcounts, n, etarget)
+
+
+def hmm_effn(c: Counts, molecule: str) -> float:
+    """The host's entropy weighting of c (entropy_weight); nseq without
+    a target."""
+    if c.etarget is None:
+        return float(c.nseq)
+    return entropy_weight(c.ecounts, c.tcounts, c.nseq, c.etarget,
+                          get_emission_prior(molecule), c.ecounts.shape[1],
+                          bg=get_background(molecule))
+
+
+def hmm_from_counts(c: Counts, effn: float, alphabet: Alphabet,
+                    molecule: str, name: str = "",
+                    map_to_columns: Optional[np.ndarray] = None) -> CoreHMM:
+    """build_hmm's second half: the counts scaled to effn, parameter
+    estimation, the consensus."""
+    K = alphabet.K
+    ecounts, tcounts = c.ecounts, c.tcounts
+    if c.etarget is not None:
+        scale = effn / c.nseq
         ecounts = ecounts * scale
         tcounts = tcounts * scale
+    eprior = get_emission_prior(molecule)
+    tprior = get_transition_prior(molecule)
     mat, ins, trans = estimate_parameters(
         ecounts, tcounts, eprior, tprior, K,
         ins_em=get_insert_emissions(molecule))
@@ -306,8 +326,24 @@ def build_hmm(codes: np.ndarray, alphabet: Alphabet, molecule: str,
         for k, b in enumerate(best))
 
     return CoreHMM(match_emissions=mat, insert_emissions=ins, trans=trans,
-                   nseq=n, effn=effn, molecule=molecule, name=name,
+                   nseq=c.nseq, effn=effn, molecule=molecule, name=name,
                    map_to_columns=map_to_columns, consensus=cons)
+
+
+def build_hmm(codes: np.ndarray, alphabet: Alphabet, molecule: str,
+              ere: float = 0.59, esigma: float = 45.0,
+              fragthresh: float = 0.5, name: str = "",
+              map_to_columns: Optional[np.ndarray] = None,
+              use_eent: bool = True) -> CoreHMM:
+    """Build a core profile HMM from an aligned code matrix [n, M]:
+    hmm_counts, the host's entropy weighting, hmm_from_counts.
+
+    The matrix must already be free of all-gap columns (the reference
+    guarantees this via delete_all_gaps before hmmbuild).
+    """
+    c = hmm_counts(codes, alphabet, ere, esigma, fragthresh, use_eent)
+    return hmm_from_counts(c, hmm_effn(c, molecule), alphabet, molecule,
+                           name, map_to_columns)
 
 
 def quantize_like_text(hmm: CoreHMM) -> CoreHMM:

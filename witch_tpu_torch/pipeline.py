@@ -735,7 +735,8 @@ def _alignment_process(device, job):
                                  Configs.alignment_size,
                                  Configs.alignment_upper_bound, molecule,
                                  n_workers=min(Configs.num_cpus,
-                                               Configs.max_concurrent_jobs))
+                                               Configs.max_concurrent_jobs),
+                                 device=device)
             if pooled:
                 sj.send_ensemble(_ensemble_bytes(ens))
             if Configs.keep_decomposition and (n_shards == 1 or (
